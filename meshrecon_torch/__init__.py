@@ -1,0 +1,27 @@
+"""meshrecon_torch: the PyTorch / CUDA port of meshrecon for NVIDIA Hopper.
+
+The JAX package ``meshrecon`` is the reference; this package mirrors its
+sub-package and module names so that each module's counterpart is easy to
+find. It imports ``torch`` and never ``jax``.
+
+Every Pallas kernel of the ported path is a CUDA C++ kernel for ``sm_90a``
+(``meshrecon_torch/csrc``), built on first use by
+``meshrecon_torch.kernels._build``. Each kernel's wrapper takes its plain
+PyTorch version for a tensor on the CPU and launches the kernel for a tensor
+on a CUDA device; it never falls back from one to the other.
+
+Layer map (the ported slice: the fused per-main-camera dense update):
+
+- ``meshrecon_torch.raster``   -- clip/project setup, plain z-buffer render,
+  tile binning + the binned raster kernel (K1), projective texturing (K2)
+- ``meshrecon_torch.flow``     -- pyramids, bilinear warp (K3), Horn-Schunck
+  relaxation (K4), the coarse-to-fine variational flow
+- ``meshrecon_torch.depth``    -- Gauss-Newton triangulation and normals
+- ``meshrecon_torch.pipeline`` -- the fused dense update
+- ``meshrecon_torch.state``    -- numpy <-> tensor conversion of its inputs
+- ``meshrecon_torch.problems`` -- seeded synthetic update problems
+"""
+
+__version__ = "0.1.0"
+
+BACKGROUND_DEPTH = 1.0  # NDC-depth sentinel for empty pixels (recon.hpp:30)

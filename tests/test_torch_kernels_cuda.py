@@ -1,0 +1,142 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions.
+
+Needs an NVIDIA GPU (sm_90a) and nvcc; skipped elsewhere, since a CUDA
+kernel has no CPU mode. This file imports no JAX, so on a machine without
+it run it without the repository's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+Bounds: K1 bitwise against ``render_depth`` (same affine edge coefficients,
+explicitly rounded operations in the same order); K2's nearest sample
+bitwise (an index pick); K2's bilinear sample and K3 1e-4 on a 0..255
+scale (the library is built with -fmad=false, so the operation order is
+the plain one); K4 1e-4 px (the kernel folds the data term into cc and
+1/denom as pallas_jacobi.py does, the plain version does not).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from meshrecon_torch import parity, problems, state
+from meshrecon_torch.flow import jacobi, tile_warp
+from meshrecon_torch.flow.remap import bilinear_warp
+from meshrecon_torch.flow.variational import _hs_sweeps, _hs_sweeps_cheb
+from meshrecon_torch.pipeline.fused import fused_main_update_batched
+from meshrecon_torch.raster import binned, rasterizer
+from meshrecon_torch.raster.fragment import bilinear_sample, nearest_sample
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _cams(b, k, dev):
+    args = problems.fused_problem(b, k, 8, 8)
+    cams = np.concatenate([args[2][:, None], args[4]], 1).reshape(-1, 4, 4)
+    return torch.from_numpy(cams).to(dev)
+
+
+@pytest.mark.parametrize("h,w,sphere", [(48, 64, (16, 16)),
+                                        (50, 70, (32, 64)),
+                                        (480, 640, (64, 128))])
+def test_raster_tiles_bitwise(dev, h, w, sphere):
+    soup, valid = (torch.from_numpy(a).to(dev) for a in
+                   state.pack_soup(problems.sphere_soup(*sphere)))
+    cams = _cams(2, 2, dev)
+    before = binned.K1.launches
+    out = binned.render_depth_binned(cams, soup, valid, h, w)
+    assert binned.K1.launches == before + 1
+    ref = rasterizer.render_depth(cams, soup, valid, h, w)
+    assert (ref < 1.0).any()
+    assert torch.equal(out, ref)
+
+
+def test_raster_tiles_near_straddle_bitwise(dev):
+    rng = np.random.default_rng(12345)
+    soup = torch.from_numpy(rng.normal(size=(200, 3, 3)).astype(
+        np.float32)).to(dev)
+    valid = torch.ones(200, dtype=torch.bool, device=dev)
+    cam = torch.from_numpy(problems.make_camera(near=0.01, far=10.0,
+                                                eye=(0, 0, 0.2))).to(dev)
+    out = binned.render_depth_binned(cam[None], soup, valid, 96, 128)[0]
+    ref = rasterizer.render_depth(cam, soup, valid, 96, 128)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("n,h,w", [(3, 37, 53), (12, 96, 128)])
+def test_sample_shadow_frame(dev, n, h, w):
+    g = torch.Generator().manual_seed(1)
+    a = torch.rand((n, h, w), generator=g).to(dev)
+    b = (255 * torch.rand((n, h, w), generator=g)).to(dev)
+    col = ((w + 10) * torch.rand((n, h, w), generator=g) - 5).to(dev)
+    row = ((h + 10) * torch.rand((n, h, w), generator=g) - 5).to(dev)
+    col[:, 0, :10] = torch.arange(10, device=dev) + 0.5
+    oa, ob = tile_warp.tile_warp_sample2_batched(a, b, col, row)
+    assert torch.equal(oa, nearest_sample(a, col, row))
+    assert (ob - bilinear_sample(b, col, row)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 31, 45), (12, 120, 160)])
+def test_warp_bilinear(dev, n, h, w):
+    g = torch.Generator().manual_seed(2)
+    img = (255 * torch.rand((n, h, w), generator=g)).to(dev)
+    u = (6 * torch.randn((n, h, w), generator=g)).to(dev)
+    v = (6 * torch.randn((n, h, w), generator=g)).to(dev)
+    before = tile_warp.K3.launches
+    out = tile_warp.tile_warp_flow_batched(img, u, v)
+    assert tile_warp.K3.launches == before + 1
+    ref = bilinear_warp(img, torch.stack([u, v], -1))
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("solver,iters", [("cheb", 14), ("cheb", 1),
+                                          ("cheb", 2), ("jacobi", 20)])
+def test_hs_sweep(dev, solver, iters):
+    g = torch.Generator().manual_seed(3)
+    shape = (2, 3, 40, 56)
+    prev = (255 * torch.rand((2, 1, 40, 56), generator=g)).to(dev)
+    warped = (prev + 5 * torch.randn(shape, generator=g).to(dev))
+    u0 = torch.randn(shape, generator=g).to(dev)
+    v0 = torch.randn(shape, generator=g).to(dev)
+    before = jacobi.K4.launches
+    u, v = jacobi.hs_level_fused(prev, warped, u0, v0, 144.0, iters=iters,
+                                 solver=solver)
+    assert jacobi.K4.launches == before + iters
+    if solver == "cheb":
+        ur, vr = _hs_sweeps_cheb(prev, warped, u0, v0, 144.0, iters)
+    else:
+        ur, vr = _hs_sweeps(prev, warped, u0, v0, 144.0, iters)
+    assert (u - ur).abs().max().item() <= 1e-4
+    assert (v - vr).abs().max().item() <= 1e-4
+
+
+def test_wrappers_reject_what_kernels_do_not_take(dev):
+    x = torch.zeros((2, 8, 8), device=dev)
+    with pytest.raises(ValueError):
+        tile_warp.tile_warp_flow_batched(x, x.transpose(1, 2), x)
+    with pytest.raises(ValueError):
+        tile_warp.tile_warp_sample2_batched(x, x, x.double(), x)
+    with pytest.raises(ValueError):
+        tile_warp.tile_warp_sample2_batched(x, x, x, x.cpu())
+
+
+def test_fused_slice_on_gpu_matches_cpu(dev):
+    """The small slice on the card (kernels) against the CPU (plain), within
+    meshrecon_torch/parity.py's bounds."""
+    args = problems.fused_problem(2, 2, 48, 64, seed=3)
+    counts = {k: k.launches for k in (binned.K1, tile_warp.K2, tile_warp.K3,
+                                      jacobi.K4)}
+    gpu = state.to_numpy(fused_main_update_batched(
+        *state.from_numpy(args, dev), 48, 64))
+    assert all(k.launches > n for k, n in counts.items())
+    cpu = state.to_numpy(fused_main_update_batched(
+        *state.from_numpy(args, "cpu"), 48, 64))
+    parity.check_slice(gpu, cpu)
