@@ -10,15 +10,24 @@ Every Pallas kernel of the ported path is a CUDA C++ kernel for ``sm_90a``
 PyTorch version for a tensor on the CPU and launches the kernel for a tensor
 on a CUDA device; it never falls back from one to the other.
 
-Layer map (the ported slice: the fused per-main-camera dense update):
+Layer map (ported: the default reconstruction, track YAML to OBJ):
 
+- ``meshrecon_torch.cli``      -- ``python -m meshrecon_torch.cli``
+- ``meshrecon_torch.pipeline`` -- config, the refinement loop
+  (``reconstruct``), the camera policy (``heuristic``), checkpoints, and
+  the fused flow and plane-sweep updates
 - ``meshrecon_torch.raster``   -- clip/project setup, plain z-buffer render,
-  tile binning + the binned raster kernel (K1), projective texturing (K2)
-- ``meshrecon_torch.flow``     -- pyramids, bilinear warp (K3), Horn-Schunck
-  relaxation (K4), the coarse-to-fine variational flow
-- ``meshrecon_torch.depth``    -- Gauss-Newton triangulation and normals
-- ``meshrecon_torch.pipeline`` -- the fused dense update
-- ``meshrecon_torch.state``    -- numpy <-> tensor conversion of its inputs
+  occlusion probe, ``Renderer``, tile binning + the binned raster kernel
+  (K1), projective texturing (K2)
+- ``meshrecon_torch.flow``     -- pyramids, bilinear warp (K3), masked
+  bilinear sample (K3c), Horn-Schunck relaxation (K4), variational flow
+- ``meshrecon_torch.depth``    -- plane sweep, Gauss-Newton triangulation,
+  normals
+- ``meshrecon_torch.points``   -- the density point filter
+- ``meshrecon_torch.meshing``  -- alpha shapes, Poisson, components, trim,
+  decimation, the native host library
+- ``meshrecon_torch.io``       -- track YAML, OBJ, synthetic frames
+- ``meshrecon_torch.state``    -- numpy <-> tensor conversion of update inputs
 - ``meshrecon_torch.problems`` -- seeded synthetic update problems
 """
 

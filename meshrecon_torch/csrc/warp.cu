@@ -1,4 +1,4 @@
-// K2 and K3: per-pixel gathers, one thread per output pixel.
+// K2, K3 and K3c: per-pixel gathers, one thread per output pixel.
 //
 // K2 replaces meshrecon/flow/tile_warp.py::_warp_tile_kernel2 (launched by
 // tile_warp_sample2 / tile_warp_sample2_batched for projective texturing):
@@ -10,8 +10,17 @@
 // (tile_warp_flow_batched, the flow solver's warps): one stack resampled
 // bilinearly at (col + u, row + v).
 //
+// K3c replaces the same _warp_tile_kernel called with a valid mask
+// (tile_warp_sample_batched(..., valid=) from the plane sweep,
+// meshrecon/depth/plane_sweep.py:174): one stack resampled bilinearly at
+// absolute coordinates (scol, srow), defined only where valid is true and
+// written as exactly 0.0 elsewhere. The sweep weights every invalid sample
+// by zero, and invalid pixels (behind the side camera, off its frame) hold
+// arbitrary coordinates, so the kernel skips their taps altogether.
+//
 // What bounds them here: device-memory bandwidth. K2 reads 4 floats per
 // pixel of coordinates and sources' taps and writes 2; K3 reads 3 and
+// writes 1; K3c reads 2 floats and a byte, plus the taps where valid, and
 // writes 1. The taps of neighbouring threads share cache lines, so the
 // gathers mostly hit L1/L2; there is no arithmetic to speak of.
 //
@@ -68,6 +77,25 @@ warp_bilinear_kernel(const float* __restrict__ image,
                          (float)r + v[idx], height, width);
 }
 
+__global__ void __launch_bounds__(kThreads)
+sample_bilinear_masked_kernel(const float* __restrict__ image,
+                              const float* __restrict__ scol,
+                              const float* __restrict__ srow,
+                              const unsigned char* __restrict__ valid,
+                              float* __restrict__ out, long long total,
+                              int height, int width) {
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= total) return;
+  if (!valid[idx]) {
+    out[idx] = 0.0f;
+    return;
+  }
+  const long long plane = (long long)height * width;
+  const long long img = idx / plane;
+  out[idx] = mr_bilinear(image + img * plane, scol[idx], srow[idx], height,
+                         width);
+}
+
 }  // namespace
 
 // shadow, frame, scol, srow, out_shadow, out_frame: (n, height, width)
@@ -93,5 +121,20 @@ MR_EXPORT int mr_warp_bilinear(const float* image, const float* u,
   warp_bilinear_kernel<<<mr_blocks(total, kThreads), kThreads, 0,
                          (cudaStream_t)stream>>>(image, u, v, out, total,
                                                  height, width);
+  return (int)cudaGetLastError();
+}
+
+// image, scol, srow, out: (n, height, width) float; valid: the same shape,
+// one byte per pixel (torch.bool)
+MR_EXPORT int mr_sample_bilinear_masked(const float* image, const float* scol,
+                                        const float* srow,
+                                        const unsigned char* valid, float* out,
+                                        int n, int height, int width,
+                                        void* stream) {
+  const long long total = (long long)n * height * width;
+  if (total == 0) return 0;
+  sample_bilinear_masked_kernel<<<mr_blocks(total, kThreads), kThreads, 0,
+                                  (cudaStream_t)stream>>>(
+      image, scol, srow, valid, out, total, height, width);
   return (int)cudaGetLastError();
 }

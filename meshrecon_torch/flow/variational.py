@@ -120,7 +120,7 @@ def _hs_level(prev, next_, u0, v0, alpha2, iters, solver: str = "cheb",
 def variational_flow(prev, next_, levels: int = 6, iters: int | None = None,
                      warps: int = 2, alpha: float = 12.0, min_size: int = 12,
                      solver: str = "cheb", want_residual: bool = False,
-                     rho: float = 0.98):
+                     rho: float = 0.98, fine_warps: int = 1):
     """Dense flow prev -> next: next(x + flow(x)) ~= prev(x).
 
     prev: (..., H, W) grayscale float (0..255 scale), broadcasting against
@@ -130,7 +130,8 @@ def variational_flow(prev, next_, levels: int = 6, iters: int | None = None,
     ``warped + Ix*(u - u0) + Iy*(v - v0)`` through the finest level's
     linearization.
 
-    The finest level runs one warp; coarser levels run ``warps``.
+    The finest level runs ``fine_warps`` warps (default one); coarser
+    levels run ``warps``.
     iters defaults to 14 Chebyshev sweeps (schedule parameter ``rho``) or
     60 Jacobi sweeps.
     """
@@ -156,7 +157,7 @@ def variational_flow(prev, next_, levels: int = 6, iters: int | None = None,
             # flow values double at 2x resolution
             u = pyr_up(u, a.shape[-2:]) * 2.0
             v = pyr_up(v, a.shape[-2:]) * 2.0
-        n_warps = 1 if lvl == 0 else warps
+        n_warps = fine_warps if lvl == 0 else warps
         for _ in range(n_warps):
             u_lin, v_lin = u, v
             u, v, warped = _hs_level(a, b, u, v, alpha2, iters,

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "mr_raster_tiles": "PPPPPPPPPP" + "IIIIIII" + "P",
     "mr_sample_shadow_frame": "PPPPPP" + "III" + "P",
     "mr_warp_bilinear": "PPPP" + "III" + "P",
+    "mr_sample_bilinear_masked": "PPPPP" + "III" + "P",
     "mr_hs_sweep": "PPPP" + "PPPP" + "PPPPPP" + "FFF" + "IIII" + "P",
 }
 _CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}

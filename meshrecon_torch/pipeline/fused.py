@@ -1,9 +1,11 @@
-"""The fused per-main-camera dense update, the hot loop body of every
+"""The fused per-main-camera dense updates, the hot loop body of every
 reconstruction iteration (recon.cpp:65-119).
 
-Port of meshrecon/pipeline/fused.py::fused_main_update_batched and
-fused_main_update (flow path, taylor variance). Stages, with the kernels
-that carry them on a CUDA device:
+Port of meshrecon/pipeline/fused.py: fused_main_update_batched and
+fused_main_update (flow path, taylor variance), and the plane-sweep update
+of the hybrid default's first iteration, fused_sweep_update_batched with
+splat_visibility. The flow update's stages, with the kernels that carry
+them on a CUDA device:
 
 1. depth renders of all B*(K+1) cameras in one launch (K1);
 2. projective texturing of the B*K side frames (K2), then the sequential
@@ -12,6 +14,9 @@ that carry them on a CUDA device:
    levels, 1 warp per level (K3), 14 Chebyshev sweeps (K4), and the
    first-order ("taylor") re-warp for the variance;
 4. pyramid-L1 variance, Gauss-Newton triangulation, normals (torch ops).
+
+The sweep update shares stages 1-2 (K1, K2 for the visibility masks), then
+sweeps 64 depth planes (K3c per plane, ``depth/plane_sweep.py``).
 """
 
 from __future__ import annotations
@@ -19,13 +24,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from meshrecon_torch import BACKGROUND_DEPTH
 from meshrecon_torch.depth.normals import estimate_normals_batched
+from meshrecon_torch.depth.plane_sweep import plane_sweep_depth_batched
 from meshrecon_torch.depth.triangulate import triangulate_pixels_batched
 from meshrecon_torch.flow.pyramid import compare
 from meshrecon_torch.flow.variational import variational_flow
 from meshrecon_torch.raster.binned import render_depth_binned
 from meshrecon_torch.raster.fragment import (mix_background,
                                              projected_image_batched)
+from meshrecon_torch.raster.rasterizer import pixel_grid
 
 
 def fused_main_update_batched(soup, soup_valid, cam_mains, frames_main,
@@ -36,7 +44,8 @@ def fused_main_update_batched(soup, soup_valid, cam_mains, frames_main,
                               flow_solver: str = "cheb",
                               variance: str = "taylor", levels: int = 2,
                               warps: int = 1, iters: int | None = None,
-                              alpha: float = 12.0, rho: float = 0.98):
+                              alpha: float = 12.0, rho: float = 0.98,
+                              fine_warps: int = 1):
     """Full dense update for B main cameras x K (padded) sides each.
 
     soup: (T, 3, 3) world triangles + (T,) validity, shared by the batch;
@@ -87,7 +96,7 @@ def fused_main_update_batched(soup, soup_valid, cam_mains, frames_main,
     flows2, rewarped = variational_flow(
         frames_main[:, None], mixed_all, levels=levels, iters=iters,
         warps=warps, alpha=alpha, solver=flow_solver, want_residual=True,
-        rho=rho)
+        rho=rho, fine_warps=fine_warps)
     var = compare(frames_main[:, None], rewarped)  # (B, K, H, W)
 
     # 4: triangulation and normals
@@ -134,7 +143,7 @@ class FusedMainUpdate(nn.Module):
     def __init__(self, height: int, width: int, levels: int = 2,
                  warps: int = 1, iters: int = 14, alpha: float = 12.0,
                  rho: float = 0.98, sampling: str = "taylor",
-                 flow_solver: str = "cheb"):
+                 flow_solver: str = "cheb", fine_warps: int = 1):
         super().__init__()
         self.height = height
         self.width = width
@@ -145,6 +154,7 @@ class FusedMainUpdate(nn.Module):
         self.rho = rho
         self.sampling = sampling
         self.flow_solver = flow_solver
+        self.fine_warps = fine_warps
         self.last_gn_sweeps = 0
 
     def forward(self, soup, soup_valid, cam_mains, frames_main, side_cams,
@@ -154,6 +164,162 @@ class FusedMainUpdate(nn.Module):
             side_valid, centers, centers_valid, n_side, self.height,
             self.width, sampling=self.sampling, flow_solver=self.flow_solver,
             levels=self.levels, warps=self.warps, iters=self.iters,
-            alpha=self.alpha, rho=self.rho)
+            alpha=self.alpha, rho=self.rho, fine_warps=self.fine_warps)
         self.last_gn_sweeps = out.pop("gn_sweeps")
         return out
+
+
+def splat_visibility(pts4, valid, side_cams, height: int, width: int,
+                     tol: float = 0.01):
+    """Per-side visibility of a depth-map surface without a mesh.
+
+    pts4 (B, H, W, 4) homogeneous world points of each main view's surface
+    estimate; valid (B, H, W); side_cams (B, K, 4, 4). Returns (B, K, H, W)
+    bool: main pixels whose point is the nearest surface claiming its
+    side-view pixel. Every main pixel is projected into the side view and
+    its side NDC z scatter-minimized over a 2x2 footprint; a pixel is
+    visible iff its own z is within a slope-adaptive ``tol`` of the winner.
+    """
+    b, k = side_cams.shape[:2]
+    proj = torch.einsum("bkij,bhwj->bkhwi", side_cams.to(torch.float32),
+                        pts4.to(torch.float32))
+    sw = proj[..., 3]
+    behind = sw <= 1e-6
+    sw_safe = torch.where(sw.abs() < 1e-6, 1e-6, sw)
+    sx = proj[..., 0] / sw_safe
+    sy = proj[..., 1] / sw_safe
+    sz = proj[..., 2] / sw_safe
+    scol = (sx + 1.0) * 0.5 * width
+    srow = (1.0 - sy) * 0.5 * height
+    inframe = (sx > -1.0) & (sx < 1.0) & (sy > -1.0) & (sy < 1.0) & ~behind
+    ok = valid[:, None] & inframe
+
+    def index(v, hi):
+        return v.clamp(0, hi - 1).to(torch.int64)
+
+    z = torch.where(ok, sz, float("inf")).reshape(b, k, -1)
+    r0 = index(torch.floor(srow), height)
+    c0 = index(torch.floor(scol), width)
+    r1 = (r0 + 1).clamp(max=height - 1)
+    c1 = (c0 + 1).clamp(max=width - 1)
+    # 2x2 footprint: closes the gaps a one-cell splat leaves where the side
+    # view magnifies the surface (up to 2x)
+    buf = torch.full((b, k, height * width), float("inf"),
+                     dtype=torch.float32, device=pts4.device)
+    for rr, cc in ((r0, c0), (r0, c1), (r1, c0), (r1, c1)):
+        buf.scatter_reduce_(2, (rr * width + cc).reshape(b, k, -1), z,
+                            "amin")
+    rq = index(torch.round(srow), height)
+    cq = index(torch.round(scol), width)
+    won = torch.gather(buf, 2, (rq * width + cq).reshape(b, k, -1)).reshape(
+        b, k, height, width)
+    # slope-adaptive bias from valid-valid neighbour pairs only: off-frame
+    # and behind-camera pixels hold arbitrary z
+    ok_u = ok & torch.cat([ok[..., 1:], ok[..., -1:]], dim=-1)
+    ok_v = ok & torch.cat([ok[..., 1:, :], ok[..., -1:, :]], dim=-2)
+    dzu = torch.where(ok_u, torch.diff(sz, dim=-1,
+                                       append=sz[..., -1:]).abs(), 0.0)
+    dzv = torch.where(ok_v, torch.diff(sz, dim=-2,
+                                       append=sz[..., -1:, :]).abs(), 0.0)
+    tol_eff = tol + 2.0 * (dzu + dzv)
+    return ok & (sz <= won + tol_eff)
+
+
+def fused_sweep_update_batched(soup, soup_valid, cam_mains, frames_main,
+                               side_cams, side_frames, side_valid, centers,
+                               centers_valid, n_side, height: int,
+                               width: int, num_depths: int = 64,
+                               passes: int = 1):
+    """Plane-sweep counterpart of :func:`fused_main_update_batched` (same
+    ten inputs): all B*(K+1) depth renders (K1), the per-side shadow-mapped
+    visibility masks (K2), each main camera's z range from its rendered
+    depth, the plane sweep (K3c), back-projection and normals. With
+    ``passes`` > 1, each further sweep takes its side visibility from the
+    previous sweep's depth map (:func:`splat_visibility`).
+
+    Returns dict(point4, normals, pdf, valid, depth) with leading B; depth
+    is the main camera's rendered depth.
+    """
+    frames_main = frames_main.to(torch.float32)
+    side_cams = side_cams.to(torch.float32)
+    side_frames = side_frames.to(torch.float32)
+    cam_mains = cam_mains.to(torch.float32)
+    side_valid = side_valid.to(torch.bool)
+    b, k = side_frames.shape[:2]
+
+    all_cams = torch.cat([cam_mains[:, None], side_cams], dim=1)
+    all_depths = render_depth_binned(
+        all_cams.reshape(b * (k + 1), 4, 4), soup, soup_valid, height, width
+    ).reshape(b, k + 1, height, width)
+    depth0 = all_depths[:, 0]
+
+    # visibility of the current surface estimate: the sweep's vote weights
+    _, masks = projected_image_batched(cam_mains, depth0, side_frames,
+                                       side_cams, all_depths[:, 1:])
+
+    # per-camera sweep range from the rendered depth span, widened by 10%
+    dvalid = depth0 < BACKGROUND_DEPTH
+    big = 3e38
+    zlo = torch.where(dvalid, depth0, big).amin(dim=(1, 2))
+    zhi = torch.where(dvalid, depth0, -big).amax(dim=(1, 2))
+    any_valid = dvalid.any(dim=2).any(dim=1)
+    zlo = torch.where(any_valid, zlo, -1.0)
+    zhi = torch.where(any_valid, zhi, 1.0)
+    span = (zhi - zlo).clamp(min=0.05)
+    zlo = zlo - 0.1 * span
+    zhi = zhi + 0.1 * span
+
+    out = plane_sweep_depth_batched(
+        frames_main, side_frames, cam_mains, side_cams, side_valid, zlo, zhi,
+        num_depths=num_depths, side_weight=masks.to(torch.float32))
+
+    main_inv = torch.linalg.inv(cam_mains)
+    cols, rows = pixel_grid(height, width, frames_main.device)
+    x = cols[None, None, :].expand(b, height, width)
+    y = rows[None, :, None].expand(b, height, width)
+
+    def backproject(depth):
+        ndc4 = torch.stack([x, y, depth, torch.ones_like(x)], dim=-1)
+        return torch.einsum("bij,bhwj->bhwi", main_inv, ndc4)
+
+    for _ in range(passes - 1):
+        vis1 = out["valid"] & dvalid
+        masks2 = splat_visibility(backproject(out["depth"]), vis1, side_cams,
+                                  height, width)
+        out = plane_sweep_depth_batched(
+            frames_main, side_frames, cam_mains, side_cams, side_valid, zlo,
+            zhi, num_depths=num_depths, side_weight=masks2.to(torch.float32))
+
+    valid = out["valid"] & dvalid & any_valid[:, None, None]
+    pts4 = backproject(out["depth"])
+    pdf = 1.0 / (1.0 + out["cost"])
+    normals = estimate_normals_batched(pts4, valid, pdf, centers,
+                                       centers_valid, n_side)
+    return {
+        "point4": pts4,
+        "normals": normals,
+        "pdf": pdf,
+        "valid": valid,
+        "depth": depth0,
+    }
+
+
+class FusedSweepUpdate(nn.Module):
+    """The plane-sweep update as a module holding its configuration;
+    ``forward`` takes the ten update inputs and returns the output dict of
+    :func:`fused_sweep_update_batched`."""
+
+    def __init__(self, height: int, width: int, num_depths: int = 64,
+                 passes: int = 1):
+        super().__init__()
+        self.height = height
+        self.width = width
+        self.num_depths = num_depths
+        self.passes = passes
+
+    def forward(self, soup, soup_valid, cam_mains, frames_main, side_cams,
+                side_frames, side_valid, centers, centers_valid, n_side):
+        return fused_sweep_update_batched(
+            soup, soup_valid, cam_mains, frames_main, side_cams, side_frames,
+            side_valid, centers, centers_valid, n_side, self.height,
+            self.width, num_depths=self.num_depths, passes=self.passes)

@@ -7,7 +7,9 @@ with background pixels = 1.0; the sample position of pixel (row, col) is
 :func:`render_depth` is the plain version of the binned raster kernel (K1,
 ``raster/binned.py``). Both test coverage with the same affine edge
 coefficients (:func:`edge_affine_planes`) in the same operation order, so
-they agree bit for bit.
+they agree bit for bit. :func:`depth_probe`, the camera policy's sparse
+occlusion probe, evaluates the same coefficients at its sample points;
+:class:`Renderer` holds the pipeline's mesh.
 """
 
 from __future__ import annotations
@@ -279,3 +281,122 @@ def render_depth(camera, soup, soup_valid, height: int, width: int):
         zbuf[r0:r1 + 1, c0:c1 + 1] = torch.minimum(
             zbuf[r0:r1 + 1, c0:c1 + 1], zc)
     return torch.where(torch.isfinite(zbuf), zbuf, 1.0)
+
+
+# depth_probe: (sample points x records) elements evaluated per block
+_PROBE_BLOCK = 1 << 22
+
+
+def depth_probe(cameras, soup, soup_valid, sample_xy):
+    """Depth at sparse NDC sample points for a batch of viewer cameras.
+
+    cameras: (S, 4, 4); soup: (T, 3, 3); soup_valid: (T,) bool; sample_xy:
+    (S, N, 2) NDC positions. Returns (S, N) float32 NDC depth, background
+    1.0: the camera policy's occlusion probe (heuristic.cpp:448-456), which
+    evaluates only the pixels it reads instead of S full renders.
+
+    One shot at a time (each shot's triangle setup is O(T)), all of its N
+    points against blocks of records sized so that a block holds about
+    4M (point, record) pairs; the same affine edge coefficients as
+    :func:`render_depth`.
+    """
+    cameras = cameras.to(torch.float32)
+    soup = soup.to(torch.float32)
+    sample_xy = sample_xy.to(torch.float32)
+    out = []
+    for camera, xy in zip(cameras, sample_xy):
+        planes = clip_project_planes(camera, soup, soup_valid)
+        a0, b0, c0, a1, b1, c1, a2, b2, c2 = edge_affine_planes(*planes)
+        z0, z1, z2 = planes[6], planes[7], planes[8]
+        px, py = xy[None, :, 0], xy[None, :, 1]
+        n = z0.shape[0]
+        block = max(1, _PROBE_BLOCK // max(1, xy.shape[0]))
+        zmin = torch.full((xy.shape[0],), float("inf"), dtype=torch.float32,
+                          device=xy.device)
+        for s in range(0, n, block):
+            sl = slice(s, s + block)
+
+            def lin(a, b, c):
+                return a[sl, None] * px + b[sl, None] * py + c[sl, None]
+
+            l0 = lin(a0, b0, c0)
+            l1 = lin(a1, b1, c1)
+            l2 = lin(a2, b2, c2)
+            zs = (l0 * z0[sl, None] + l1 * z1[sl, None]
+                  + l2 * z2[sl, None])
+            covered = ((l0 >= 0) & (l1 >= 0) & (l2 >= 0)
+                       & (zs >= -1.0) & (zs <= 1.0))
+            zc = torch.where(covered, zs, float("inf")).amin(0)
+            zmin = torch.minimum(zmin, zc)
+        out.append(torch.where(torch.isfinite(zmin), zmin, 1.0))
+    return torch.stack(out)
+
+
+class Renderer:
+    """Pipeline-facing renderer (the reference's ``Render`` seam,
+    recon.hpp:93-100): holds the mesh as a Morton-sorted, capacity-padded
+    triangle soup on ``device`` and renders depth through
+    ``render_depth_binned`` (K1 on a CUDA device, the plain render on the
+    CPU) and projective texturing through K2."""
+
+    def __init__(self, width: int, height: int, device="cpu"):
+        self.width = int(width)
+        self.height = int(height)
+        self.device = torch.device(device)
+        self._soup = None
+        self._valid = None
+
+    def load_mesh(self, mesh) -> None:
+        """Dehomogenize the mesh's vertices into a soup
+        (render_glx.cpp:230-258), sorted and padded by ``state.pack_soup``."""
+        from meshrecon_torch.state import pack_soup
+
+        soup, valid = pack_soup(mesh.triangle_soup)
+        self._soup = torch.from_numpy(soup).to(self.device)
+        self._valid = torch.from_numpy(valid).to(self.device)
+
+    @property
+    def soup(self):
+        return self._soup
+
+    @property
+    def soup_valid(self):
+        return self._valid
+
+    def _check_loaded(self):
+        if self._soup is None:
+            raise RuntimeError("Renderer: load_mesh first")
+
+    def _camera(self, camera):
+        return torch.as_tensor(camera, dtype=torch.float32,
+                               device=self.device)
+
+    def depth(self, camera) -> torch.Tensor:
+        """(H, W) depth of one camera (4, 4)."""
+        from meshrecon_torch.raster.binned import render_depth_binned
+
+        self._check_loaded()
+        return render_depth_binned(self._camera(camera)[None], self._soup,
+                                   self._valid, self.height, self.width)[0]
+
+    def depth_at(self, cameras, sample_xy) -> torch.Tensor:
+        """(S, N) depth of S viewer cameras at their (S, N, 2) samples."""
+        self._check_loaded()
+        return depth_probe(self._camera(cameras), self._soup, self._valid,
+                           torch.as_tensor(sample_xy, dtype=torch.float32,
+                                           device=self.device))
+
+    def projected(self, camera, frame, projector, depth_main=None):
+        """Projective texturing of one side frame into one main view:
+        (intensity (H, W), mask (H, W) bool)."""
+        from meshrecon_torch.raster.fragment import projected_image_batched
+
+        self._check_loaded()
+        if depth_main is None:
+            depth_main = self.depth(camera)
+        depth_side = self.depth(projector)
+        inten, mask = projected_image_batched(
+            self._camera(camera)[None], depth_main[None],
+            frame.to(self.device)[None, None],
+            self._camera(projector)[None, None], depth_side[None, None])
+        return inten[0, 0], mask[0, 0]

@@ -98,8 +98,20 @@ def test_state_round_trip():
 
 
 def test_port_never_imports_jax():
-    code = ("import sys, meshrecon_torch.pipeline.fused, meshrecon_torch.state,"
-            " meshrecon_torch.problems; sys.exit('jax' in sys.modules)")
+    modules = ("meshrecon_torch.pipeline.fused", "meshrecon_torch.state",
+               "meshrecon_torch.problems", "meshrecon_torch.cli",
+               "meshrecon_torch.pipeline.reconstruct",
+               "meshrecon_torch.pipeline.config",
+               "meshrecon_torch.pipeline.heuristic",
+               "meshrecon_torch.pipeline.checkpoint",
+               "meshrecon_torch.depth.plane_sweep",
+               "meshrecon_torch.io.synthetic", "meshrecon_torch.io.tracks",
+               "meshrecon_torch.meshing.poisson",
+               "meshrecon_torch.meshing.native",
+               "meshrecon_torch.points.filter",
+               "meshrecon_torch.utils.profiling")
+    code = (f"import sys, {', '.join(modules)}; "
+            "sys.exit('jax' in sys.modules or 'meshrecon' in sys.modules)")
     root = Path(__file__).resolve().parent.parent
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=root)

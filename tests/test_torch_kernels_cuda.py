@@ -10,8 +10,10 @@ Bounds: K1 bitwise against ``render_depth`` (same affine edge coefficients,
 explicitly rounded operations in the same order); K2's nearest sample
 bitwise (an index pick); K2's bilinear sample and K3 1e-4 on a 0..255
 scale (the library is built with -fmad=false, so the operation order is
-the plain one); K4 1e-4 px (the kernel folds the data term into cc and
-1/denom as pallas_jacobi.py does, the plain version does not).
+the plain one); K3c the same 1e-4 on valid pixels and exactly 0 on the
+others; K4 1e-4 px (the kernel folds the data term into cc and 1/denom as
+pallas_jacobi.py does, the plain version does not). The sweep update and
+the reconstruction on the card against their plain runs on the CPU.
 """
 
 import numpy as np
@@ -22,7 +24,8 @@ from meshrecon_torch import parity, problems, state
 from meshrecon_torch.flow import jacobi, tile_warp
 from meshrecon_torch.flow.remap import bilinear_warp
 from meshrecon_torch.flow.variational import _hs_sweeps, _hs_sweeps_cheb
-from meshrecon_torch.pipeline.fused import fused_main_update_batched
+from meshrecon_torch.pipeline.fused import (fused_main_update_batched,
+                                            fused_sweep_update_batched)
 from meshrecon_torch.raster import binned, rasterizer
 from meshrecon_torch.raster.fragment import bilinear_sample, nearest_sample
 
@@ -118,6 +121,43 @@ def test_hs_sweep(dev, solver, iters):
     assert (v - vr).abs().max().item() <= 1e-4
 
 
+def _plane_coords(n, h, w, dev):
+    """One depth plane's sample field of real camera pairs: off-frame and
+    behind-camera pixels are invalid."""
+    main = problems.make_camera(eye=(0, 0, 0))
+    cm = torch.from_numpy(np.stack([
+        problems.make_camera(eye=(2.0 * i - 2.0, 0.6, 0.8))
+        @ np.linalg.inv(main) for i in range(n)])).to(dev)
+    cols, rows = rasterizer.pixel_grid(h, w, dev)
+    x, y = cols[None, None, :], rows[None, :, None]
+
+    def row(r):
+        c = cm[:, r, :, None, None]
+        return c[:, 0] * x + c[:, 1] * y + c[:, 2] * 0.9 + c[:, 3]
+
+    sw = row(3)
+    ok = sw > 1e-6
+    sw = torch.where(sw.abs() < 1e-6, 1e-6, sw)
+    sx, sy = row(0) / sw, row(1) / sw
+    ok &= (sx.abs() < 1.0) & (sy.abs() < 1.0)
+    return ((sx + 1.0) * 0.5 * w).contiguous(), \
+        ((1.0 - sy) * 0.5 * h).contiguous(), ok.contiguous()
+
+
+@pytest.mark.parametrize("n,h,w", [(3, 37, 53), (16, 480, 640)])
+def test_sample_bilinear_masked(dev, n, h, w):
+    g = torch.Generator().manual_seed(4)
+    img = (255 * torch.rand((n, h, w), generator=g)).to(dev)
+    scol, srow, ok = _plane_coords(n, h, w, dev)
+    assert 0.05 < ok.float().mean().item() < 0.99
+    before = tile_warp.K3C.launches
+    out = tile_warp.tile_warp_sample_batched(img, scol, srow, ok)
+    assert tile_warp.K3C.launches == before + 1
+    ref = tile_warp.sample_bilinear_masked_plain(img, scol, srow, ok)
+    assert (out[~ok] == 0).all()
+    assert (out - ref)[ok].abs().max().item() <= 1e-4
+
+
 def test_wrappers_reject_what_kernels_do_not_take(dev):
     x = torch.zeros((2, 8, 8), device=dev)
     with pytest.raises(ValueError):
@@ -126,6 +166,10 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
         tile_warp.tile_warp_sample2_batched(x, x, x.double(), x)
     with pytest.raises(ValueError):
         tile_warp.tile_warp_sample2_batched(x, x, x, x.cpu())
+    with pytest.raises(ValueError):
+        tile_warp.tile_warp_sample_batched(x, x, x, (x > 0.5).float())
+    with pytest.raises(ValueError):
+        tile_warp.tile_warp_sample_batched(x, x, x, (x > 0)[:1])
 
 
 def test_fused_slice_on_gpu_matches_cpu(dev):
@@ -140,3 +184,39 @@ def test_fused_slice_on_gpu_matches_cpu(dev):
     cpu = state.to_numpy(fused_main_update_batched(
         *state.from_numpy(args, "cpu"), 48, 64))
     parity.check_slice(gpu, cpu)
+
+
+def test_sweep_update_on_gpu_matches_cpu(dev):
+    """The sweep update on the card (K1, K2, K3c) against the CPU."""
+    args = list(problems.fused_problem(2, 3, 48, 64, seed=5))
+    args[0], args[1] = state.pack_soup(problems.sphere_soup(16, 32))
+    counts = {k: k.launches for k in (binned.K1, tile_warp.K2,
+                                      tile_warp.K3C)}
+    gpu = state.to_numpy(fused_sweep_update_batched(
+        *state.from_numpy(args, dev), 48, 64, num_depths=16, passes=2))
+    assert all(k.launches > n for k, n in counts.items())
+    cpu = state.to_numpy(fused_sweep_update_batched(
+        *state.from_numpy(args, "cpu"), 48, 64, num_depths=16, passes=2))
+    assert np.array_equal(gpu["depth"], cpu["depth"])
+    assert (gpu["valid"] == cpu["valid"]).mean() >= 0.999
+    both = gpu["valid"] & cpu["valid"]
+    assert both.mean() > 0.05
+    d = np.linalg.norm(gpu["point4"][both] - cpu["point4"][both], axis=-1)
+    assert (d <= 1e-3 * np.linalg.norm(cpu["point4"][both], axis=-1)
+            ).mean() >= 0.99
+
+
+def test_cli_on_gpu(dev, tmp_path):
+    """The default reconstruction at 1/8 size through every kernel."""
+    from meshrecon_torch import cli
+    from meshrecon_torch.io.obj import read_mesh
+    from meshrecon_torch.kernels import all_kernels
+
+    kernels = all_kernels()
+    before = {k.name: k.launches for k in kernels}
+    out = str(tmp_path / "gpu.obj")
+    assert cli.main(["tracks/koule-tr.yaml", "--synthetic", "sphere", "-s",
+                     "8", "-n", "2", "--seed", "3", "-o", out,
+                     "--poisson-grid", "64"]) == 0
+    assert len(read_mesh(out).faces) > 0
+    assert all(k.launches > before[k.name] for k in kernels)
