@@ -423,8 +423,8 @@ def run_e2e(torch, dev):
     from meshrecon_torch.kernels import all_kernels
     from meshrecon_torch.utils.profiling import StageTimer
 
-    out_dir = Path("chiprun_out")
-    out_dir.mkdir(exist_ok=True)
+    out_dir = Path("build") / "chip_smoke"  # git-ignored
+    out_dir.mkdir(parents=True, exist_ok=True)
     obj = out_dir / "chip_smoke_e2e.obj"
     kernels = all_kernels()
     for k in kernels:
