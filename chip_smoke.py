@@ -19,8 +19,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the CPU within meshrecon_torch/parity.py's bounds.
 5. K3c (the plane sweep's masked bilinear sample) against its plain
    version at the sweep's shapes: koule-tr's cameras at 640x480, B=4 main
-   cameras x K=4 sides, one depth plane's coordinate field, so that
-   off-frame and behind-camera pixels are invalid.
+   cameras x K=4 sides and the K=8 bucket, depth planes' coordinate
+   fields, so that off-frame and behind-camera pixels are invalid.
 6. The sweep update (``FusedSweepUpdate``, 64 depths) on those cameras,
    synthetic frames and a 16,384-triangle sphere fitted to the scene's
    bundles: K1, K2 and K3c must launch, the valid share must pass a floor,
@@ -302,50 +302,57 @@ def sweep_problem(torch, dev):
 
 
 def k3c_phase(torch, dev, res, sweep_args):
-    """K3c against its plain version on one depth plane of the sweep: the
-    middle of main camera 0's rendered depth range."""
+    """K3c against its plain version on the sweep's coordinate fields: at
+    K=4 sides the plane in the middle of the main cameras' rendered depth
+    range, and at K=8 (the bucket of bundles with 5 to 8 sides) that plane
+    beside the one at the lower quartile."""
     from meshrecon_torch.flow import tile_warp
     from meshrecon_torch.raster import binned
     from meshrecon_torch.raster.rasterizer import pixel_grid
 
     soup, soup_valid, mains, _, scs, sfs = sweep_args[:6]
     depth = binned.render_depth_binned(mains, soup, soup_valid, H, W)
-    z = depth[depth < 1.0].median()
     cm = scs @ torch.linalg.inv(mains)[:, None]
     cols, rows = pixel_grid(H, W, dev)
 
-    def row(r):
-        c = cm[:, :, r, :, None, None]
-        return c[:, :, 0] * cols + c[:, :, 1] * rows[:, None] \
-            + c[:, :, 2] * z + c[:, :, 3]
+    def field(z):
+        def row(r):
+            c = cm[:, :, r, :, None, None]
+            return c[:, :, 0] * cols + c[:, :, 1] * rows[:, None] \
+                + c[:, :, 2] * z + c[:, :, 3]
 
-    sw = row(3)
-    ok = sw > 1e-6
-    sw = torch.where(sw.abs() < 1e-6, 1e-6, sw)
-    sx, sy = row(0) / sw, row(1) / sw
-    ok = (ok & (sx.abs() < 1.0) & (sy.abs() < 1.0)).contiguous()
-    scol = ((sx + 1.0) * 0.5 * W).contiguous()
-    srow = ((1.0 - sy) * 0.5 * H).contiguous()
-    srcs = sfs.contiguous()
-    share = ok.float().mean().item()
-    print(f"sample_bilinear_masked: valid share {share:.4f} at z {z:.5f}")
-    if not 0.05 < share < 1.0:
-        raise AssertionError(f"K3c plane: valid share {share} is not a "
-                             "mix of valid and invalid pixels")
-    out = tile_warp.tile_warp_sample_batched(srcs, scol, srow, ok)
-    ref = tile_warp.sample_bilinear_masked_plain(srcs, scol, srow, ok)
-    torch.cuda.synchronize()
-    if (out[~ok] != 0).any():
-        raise AssertionError("K3c: invalid pixels are not exactly 0")
-    err = (out - ref)[ok].abs().max().item()
-    ms = _cuda_ms(torch, lambda: tile_warp.tile_warp_sample_batched(
-        srcs, scol, srow, ok), 50)
-    plain_ms = _cuda_ms(torch, lambda: tile_warp.sample_bilinear_masked_plain(
-        srcs, scol, srow, ok), 10)
-    n = srcs.shape[0] * srcs.shape[1]
-    # the same arithmetic in the same order (-fmad=false): 1e-4 on 0..255
-    res.add(tile_warp.K3C, f"{n}x{H}x{W} valid pixels", err, 1e-4, ms,
-            plain_ms)
+        sw = row(3)
+        ok = sw > 1e-6
+        sw = torch.where(sw.abs() < 1e-6, 1e-6, sw)
+        sx, sy = row(0) / sw, row(1) / sw
+        ok = ok & (sx.abs() < 1.0) & (sy.abs() < 1.0)
+        return (sx + 1.0) * 0.5 * W, (1.0 - sy) * 0.5 * H, ok
+
+    zs = depth[depth < 1.0]
+    planes = [field(zs.median()), field(zs.quantile(0.25))]
+    for parts in (planes[:1], planes):
+        scol, srow, ok = (torch.cat(f, 1).contiguous() for f in zip(*parts))
+        srcs = torch.cat([sfs] * len(parts), 1).contiguous()
+        b, k = srcs.shape[:2]
+        share = ok.float().mean().item()
+        label = f"{b}x{k}x{H}x{W} valid pixels"
+        print(f"sample_bilinear_masked [{label}]: valid share {share:.4f}")
+        if not 0.05 < share < 1.0:
+            raise AssertionError(f"K3c plane: valid share {share} is not a "
+                                 "mix of valid and invalid pixels")
+        out = tile_warp.tile_warp_sample_batched(srcs, scol, srow, ok)
+        ref = tile_warp.sample_bilinear_masked_plain(srcs, scol, srow, ok)
+        torch.cuda.synchronize()
+        if (out[~ok] != 0).any():
+            raise AssertionError("K3c: invalid pixels are not exactly 0")
+        err = (out - ref)[ok].abs().max().item()
+        ms = _cuda_ms(torch, lambda: tile_warp.tile_warp_sample_batched(
+            srcs, scol, srow, ok), 50)
+        plain_ms = _cuda_ms(
+            torch, lambda: tile_warp.sample_bilinear_masked_plain(
+                srcs, scol, srow, ok), 10)
+        # the same arithmetic in the same order (-fmad=false): 1e-4 on 0..255
+        res.add(tile_warp.K3C, label, err, 1e-4, ms, plain_ms)
 
 
 def _swept_ndc(out, mains):

@@ -1,11 +1,12 @@
 """Plane-sweep photometric depth: the hybrid default's first iteration.
 
 Port of meshrecon/depth/plane_sweep.py (``plane_sweep_depth_batched``,
-``plane_sweep_depth``, ``_box3``). D depth hypotheses sweep through each main
-camera's frustum; at each one every side frame is resampled onto the main
-view (K3c, ``flow/tile_warp.py::tile_warp_sample_batched``), scored by a
-weighted absolute difference, summed over the sides and box-filtered, and a
-running (best, previous, next) cost gives a parabolic sub-plane refinement.
+``_box3``; one main camera is a batch of one). D depth hypotheses sweep
+through each main camera's frustum; at each one every side frame is
+resampled onto the main view (K3c,
+``flow/tile_warp.py::tile_warp_sample_batched``), scored by a weighted
+absolute difference, summed over the sides and box-filtered, and a running
+(best, previous, next) cost gives a parabolic sub-plane refinement.
 The JAX ``lax.scan`` over planes is a Python loop here; memory stays
 O(B*K*H*W) for any D. The side-sharded ``axis_name`` form waits for the
 sharding slice (ROADMAP Queue A, A12).
@@ -127,20 +128,3 @@ def plane_sweep_depth_batched(frames_main, frames_side, cam_mains, cams_side,
     depth = torch.where(valid, depth, BACKGROUND_DEPTH)
     return {"depth": depth, "cost": best_c, "valid": valid}
 
-
-def plane_sweep_depth(frame_main, frames_side, cam_main, cams_side,
-                      side_valid, z_min, z_max, num_depths: int = 64,
-                      side_weight=None):
-    """The B=1 slice of :func:`plane_sweep_depth_batched`: frame_main
-    (H, W), frames_side (K, H, W), cam_main (4, 4), cams_side (K, 4, 4),
-    side_valid (K,), scalar z_min/z_max, side_weight optional (K, H, W).
-    Returns dict of (H, W) tensors."""
-    dev = frame_main.device
-    out = plane_sweep_depth_batched(
-        frame_main[None], frames_side[None], cam_main[None], cams_side[None],
-        side_valid[None],
-        torch.as_tensor(z_min, dtype=torch.float32, device=dev).reshape(1),
-        torch.as_tensor(z_max, dtype=torch.float32, device=dev).reshape(1),
-        num_depths=num_depths,
-        side_weight=None if side_weight is None else side_weight[None])
-    return {k: v[0] for k, v in out.items()}

@@ -15,9 +15,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from meshrecon_torch import BACKGROUND_DEPTH
-from meshrecon_torch.depth.normals import estimate_normals
-from meshrecon_torch.depth.plane_sweep import plane_sweep_depth
 from meshrecon_torch.geometry.camera import np_extract_camera_center
 from meshrecon_torch.io.obj import Mesh, save_mesh
 from meshrecon_torch.meshing.decimate import decimate_vertex_clustering
@@ -114,6 +111,24 @@ def _batch_inputs(config, renderer, group, kb: int, cb: int):
             svs_t, ctrs_t, cvs_t, ks_t)
 
 
+def _update(config, mode: str):
+    """The dense update of a depth mode and its StageTimer stage."""
+    if mode == "plane-sweep":
+        return sweep_update(config), "fused_sweep_update"
+    return main_update(config), "fused_main_update"
+
+
+def _results(out, real: int):
+    """(points4 (n, 4), normals (n, 3), n) of the first ``real`` batch
+    items' valid pixels, numpy float32."""
+    valid = out["valid"].cpu().numpy()
+    p4 = out["point4"].cpu().numpy()
+    nrm = out["normals"].cpu().numpy()
+    return [(p4[b][valid[b]].astype(np.float32),
+             nrm[b][valid[b]].astype(np.float32), int(valid[b].sum()))
+            for b in range(real)]
+
+
 def _process_bundles_batched(config, renderer, bundles, timer,
                              mode: str = "flow"):
     """Dense updates for all bundles, ``BATCH`` main cameras per call.
@@ -123,10 +138,7 @@ def _process_bundles_batched(config, renderer, bundles, timer,
     bundle, and the padding entries' outputs are dropped. Returns one
     (points4 (n, 4), normals (n, 3), n) per bundle, numpy float32.
     """
-    if mode == "plane-sweep":
-        update, stage = sweep_update(config), "fused_sweep_update"
-    else:
-        update, stage = main_update(config), "fused_main_update"
+    update, stage = _update(config, mode)
     npix = config.height * config.width
     kb = _k_bucket(config, max(len(s) for _, s in bundles))
     cb = _bucket(kb + 1)
@@ -138,106 +150,37 @@ def _process_bundles_batched(config, renderer, bundles, timer,
         with timer.stage(stage, npix * BATCH) as done:
             out = done(update(*_batch_inputs(config, renderer, group, kb,
                                              cb)))
-        valid = out["valid"].cpu().numpy()
-        p4 = out["point4"].cpu().numpy()
-        nrm = out["normals"].cpu().numpy()
-        for b in range(real):
-            vb = valid[b]
-            results.append((p4[b][vb].astype(np.float32),
-                            nrm[b][vb].astype(np.float32), int(vb.sum())))
+        results += _results(out, real)
     return results
 
 
-def _process_main_fused(config, renderer, fa: int, sides, timer):
-    """One main camera through the flow update (B=1)."""
+def _process_main_fused(config, renderer, fa: int, sides, timer,
+                        mode: str = "flow"):
+    """One main camera through the flow or the sweep update (B=1)."""
     npix = config.height * config.width
     k = len(sides)
     if k == 0:
         return np.zeros((0, 4), np.float32), np.zeros((0, 3), np.float32), 0
+    update, stage = _update(config, mode)
     kb = _k_bucket(config, k)
-    with timer.stage("fused_main_update", npix * k) as done:
-        out = done(main_update(config)(*_batch_inputs(
-            config, renderer, [(fa, sides)], kb, _bucket(k + 1))))
-    valid = out["valid"][0].cpu().numpy()
-    pts = out["point4"][0].cpu().numpy()[valid]
-    nrm = out["normals"][0].cpu().numpy()[valid]
-    return pts.astype(np.float32), nrm.astype(np.float32), int(valid.sum())
-
-
-def _process_main_plane_sweep(config, renderer, fa: int, sides, depth,
-                              timer):
-    """One main camera through the plane sweep: the NDC depth range of the
-    rendered estimate widened by 10%, each side's vote weighted by its
-    shadow-mapped visibility, the matching cost mapped to a pseudo-density
-    1 / (1 + cost)."""
-    dev = torch.device(config.device)
-    npix = config.height * config.width
-    cam_main = config.camera(fa)
-    cams = np.stack([config.camera(fb) for fb in sides])
-
-    d = depth.cpu().numpy()
-    dv = d[d < BACKGROUND_DEPTH]
-    if dv.size == 0:
-        return np.zeros((0, 4), np.float32), np.zeros((0, 3), np.float32), 0
-    span = max(float(dv.max() - dv.min()), 0.05)
-    margin = 0.1 * span
-    zlo, zhi = float(dv.min()) - margin, float(dv.max()) + margin
-
-    with timer.stage("plane_sweep", npix) as done:
-        side_vis = torch.stack([
-            renderer.projected(cam_main, config.frame(fb), config.camera(fb),
-                               depth_main=depth)[1]
-            for fb in sides]).to(torch.float32)
-        out = done(plane_sweep_depth(
-            config.frame(fa).to(dev),
-            torch.stack([config.frame(fb) for fb in sides]).to(dev),
-            torch.from_numpy(np.asarray(cam_main, np.float32)).to(dev),
-            torch.from_numpy(cams.astype(np.float32)).to(dev),
-            torch.ones(len(sides), dtype=torch.bool, device=dev), zlo, zhi,
-            num_depths=config.sweep_depths, side_weight=side_vis))
-
-    h, w = config.height, config.width
-    main_inv = np.linalg.inv(cam_main.astype(np.float64))
-    zmap = out["depth"].cpu().numpy()
-    valid = out["valid"].cpu().numpy() & (d < BACKGROUND_DEPTH)
-    cost = out["cost"].cpu().numpy()
-
-    cols = (np.arange(w) - w / 2.0) * 2.0 / w
-    rows = (h / 2.0 - np.arange(h)) * 2.0 / h
-    x, y = np.meshgrid(cols, rows)
-    ndc4 = np.stack([x, y, zmap, np.ones_like(zmap)], axis=-1)
-    pts4 = np.einsum("ij,hwj->hwi", main_inv, ndc4).astype(np.float32)
-    pdf = (1.0 / (1.0 + cost)).astype(np.float32)
-
-    centers3 = _centers3(config, fa, sides)
-    with timer.stage("normals", npix) as done:
-        normals_img = done(estimate_normals(
-            torch.from_numpy(pts4).to(dev), torch.from_numpy(valid).to(dev),
-            torch.from_numpy(pdf).to(dev), torch.from_numpy(centers3).to(dev),
-            torch.ones(len(centers3), dtype=torch.bool, device=dev),
-            len(sides)))
-    pts = pts4[valid]
-    nrm = normals_img.cpu().numpy()[valid]
-    return pts.astype(np.float32), nrm.astype(np.float32), int(valid.sum())
+    with timer.stage(stage, npix * k) as done:
+        out = done(update(*_batch_inputs(config, renderer, [(fa, sides)], kb,
+                                         _bucket(k + 1))))
+    return _results(out, 1)[0]
 
 
 def process_main_camera(config, renderer, fa: int, sides: list[int],
                         timer=None, depth_mode: str | None = None):
     """Dense update for one main camera: (points4, normals, count).
 
-    "flow" (and an unresolved "hybrid") takes the fused flow update;
-    "plane-sweep" the single-camera sweep.
+    "flow" (and an unresolved "hybrid") takes the flow update,
+    "plane-sweep" the sweep update, each on a batch of one.
     """
     timer = timer or StageTimer(enabled=False)
     mode = depth_mode or config.depth_mode
     if mode == "hybrid":  # unresolved (direct caller): refinement semantics
         mode = "flow"
-    if mode == "flow":
-        return _process_main_fused(config, renderer, fa, sides, timer)
-    with timer.stage("render.depth", config.height * config.width) as done:
-        depth = done(renderer.depth(config.camera(fa)))
-    return _process_main_plane_sweep(config, renderer, fa, sides, depth,
-                                     timer)
+    return _process_main_fused(config, renderer, fa, sides, timer, mode)
 
 
 def reconstruct(config, timer=None) -> Mesh:

@@ -8,6 +8,7 @@ on that tensor's device, so each stage reads on the card's timeline.
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from collections import defaultdict
 
@@ -73,3 +74,23 @@ class StageTimer:
             lines.append(
                 f"{name:<30} {self.counts[name]:>5} {t:>9.3f} {mpix:>9.1f}")
         return "\n".join(lines)
+
+
+# the categories of torch.profiler's Chrome trace that run on the device
+DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_busy(trace: dict) -> tuple[float, int]:
+    """(seconds, count): the time in which the device ran at least one
+    kernel, copy or memset of a Chrome trace (torch.profiler's export),
+    overlapping events merged, and the number of such events. Host events
+    (CPU ops, CUDA runtime calls, annotations) do not count."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"])
+                   for e in trace.get("traceEvents", [])
+                   if e.get("ph") == "X" and e.get("cat") in DEVICE_EVENT_CATS)
+    busy_us, end = 0.0, -math.inf
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return busy_us / 1e6, len(spans)

@@ -14,6 +14,8 @@ same face count (35,532 untrimmed, 16,248 trimmed) and figures equal to
 (median) and 0.05 R (p90) with two, faces within 1% and 10%.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -29,7 +31,7 @@ from meshrecon_torch import cli
 from meshrecon_torch.io.obj import read_mesh
 from meshrecon_torch.pipeline import checkpoint, reconstruct
 from meshrecon_torch.pipeline.config import Config, config_from_args
-from meshrecon_torch.utils.profiling import StageTimer
+from meshrecon_torch.utils.profiling import StageTimer, device_busy
 
 torch.set_num_threads(1)
 
@@ -149,6 +151,22 @@ def test_cli_profile_trace(tmp_path, koule_small):
               "24", "--sweep-depths", "8", "--device", "cpu", "--profile",
               str(tmp_path / "prof")])
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    summary = json.loads((tmp_path / "prof" / "device_busy.json").read_text())
+    assert summary["wall_s"] > 0
+    assert summary["device_busy_s"] == summary["device_events"] == 0
+
+
+def test_device_busy_merges_device_events_only():
+    events = [{"ph": "X", "cat": "kernel", "ts": 0.0, "dur": 10.0},
+              {"ph": "X", "cat": "kernel", "ts": 5.0, "dur": 10.0},
+              {"ph": "X", "cat": "gpu_memcpy", "ts": 12.0, "dur": 1.0},
+              {"ph": "X", "cat": "gpu_memset", "ts": 30.0, "dur": 2.0},
+              {"ph": "X", "cat": "cpu_op", "ts": 0.0, "dur": 100.0},
+              {"ph": "X", "cat": "cuda_runtime", "ts": 40.0, "dur": 5.0},
+              {"ph": "X", "cat": "gpu_user_annotation", "ts": 0, "dur": 90},
+              {"ph": "i", "cat": "kernel", "ts": 50.0}]
+    busy, n = device_busy({"traceEvents": events})
+    assert n == 4 and busy == pytest.approx(17e-6)
 
 
 @pytest.mark.parametrize("flag", [
