@@ -5,34 +5,53 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Prints the device (``torch.cuda.get_device_name`` and nvidia-smi's name
    and power limit); exits non-zero without a CUDA device.
-2. Builds the hand-written kernels (meshrecon_torch/csrc) and the native
-   host meshing library, and prints the build times and the compiler's
-   register report.
-3. Kernel phases: K1-K4 against their plain PyTorch versions on the card,
-   at the shapes of the fused update at 640x480, K=3 sides, B=4: max
-   difference against a stated bound, kernel and plain times (CUDA events
-   after a warm-up). A missed bound raises.
-4. The flow update: 3 fused updates (``FusedMainUpdate``) at that size on
-   a 16,384-triangle sphere, with launch counters reset just before; every
-   kernel must have launched, outputs must be finite where valid, and
-   batch item 0 must agree with the port's plain run of the same inputs on
-   the CPU within meshrecon_torch/parity.py's bounds.
-5. K3c (the plane sweep's masked bilinear sample) against its plain
+2. Builds the hand-written kernels (meshrecon_torch/csrc, one nvcc per
+   source in parallel) and the native host meshing library, and prints the
+   build times and the compiler's register report.
+3. Kernel phases: each kernel against its plain PyTorch version on the
+   card, at the shapes its path gives it (the fused update at 640x480, K=3
+   sides, B=4): max difference against a stated bound, kernel and plain
+   times (CUDA events after a warm-up), the least time the card could take
+   (``bound_ms``: bytes over 3.35 TB/s or float32 operations over 67
+   TFLOP/s, whichever is larger, H100 SXM data sheet), and the time of the
+   one PyTorch call that computes the same function where there is one
+   (``grid_sample``; a yardstick only, never called by the port). K1-K4;
+   K2's bilinear shadow mode; K3b (the bicubic re-warp) at 12x480x640 and
+   at the K=8 bucket 4x8x480x640; K6 (Jacobi sweeps given the fields) at
+   12x480x640, 60 sweeps. A missed bound raises.
+4. The solver check (the multigrid solver's path on the card): at
+   12x240x320, ``hs_solve_mg`` (2 cycles) and 60 K6 sweeps against a
+   1,500-sweep K6 fixed point; the multigrid error must beat the 60-sweep
+   error and stay under 1 px (tests/test_multigrid.py's check), and the
+   card's multigrid solve must agree with the port's CPU solve.
+5. The flow update: 3 fused updates (``FusedMainUpdate``) at 640x480, K=3,
+   B=4 on a 16,384-triangle sphere, with launch counters reset just
+   before; every kernel of its path must have launched, outputs must be
+   finite where valid, and batch item 0 must agree with the port's plain
+   run of the same inputs on the CPU within meshrecon_torch/parity.py's
+   bounds. Then its options the same way, two updates each:
+   ``variance="rewarp"`` and ``use_farneback=True`` (K3b), ``flow_solver=
+   "mg"`` (K3 warps, no K4), ``shadow_sample="bilinear"`` (K2's mode).
+6. K3c (the plane sweep's masked bilinear sample) against its plain
    version at the sweep's shapes: koule-tr's cameras at 640x480, B=4 main
    cameras x K=4 sides and the K=8 bucket, depth planes' coordinate
    fields, so that off-frame and behind-camera pixels are invalid.
-6. The sweep update (``FusedSweepUpdate``, 64 depths) on those cameras,
+7. The sweep update (``FusedSweepUpdate``, 64 depths) on those cameras,
    synthetic frames and a 16,384-triangle sphere fitted to the scene's
    bundles: K1, K2 and K3c must launch, the valid share must pass a floor,
    and batch item 0 must agree with the port's plain CPU run.
-7. End to end: ``meshrecon_torch.cli.main`` on koule-tr at the defaults
-   (640x480, -n 2, hybrid, 64 depths, Poisson grid 128, trim 2), seed 3:
-   every kernel must launch, the OBJ must have faces, and its vertices
-   must lie on the scene's fitted sphere (median |r - R| / R <= 0.20, p90
-   <= 0.50). Prints the wall seconds of the run and of each stage.
-8. Prints one JSON line of per-kernel results (launch counts from the end
-   to end run), then the device line ``{"ok": true, "device": {...}}``
-   last.
+8. End to end, three times: ``meshrecon_torch.cli.main`` on koule-tr at
+   the defaults (640x480, -n 2, hybrid, 64 depths, Poisson grid 128, trim
+   2), seed 3; then with ``--variance-mode rewarp``; then with ``-f``.
+   Every kernel of each run's path must launch, the OBJ must have faces,
+   and its vertices must lie on the scene's fitted sphere within the run's
+   bounds. Prints the wall seconds of each run and of each stage.
+9. Prints one JSON line of per-kernel results, then the device line
+   ``{"ok": true, "device": {...}}`` last. Each kernel's ``launches`` is
+   the count of the path it serves, read just after that path's run with
+   the counters reset just before: K1, K2, K3, K3c and K4 from the default
+   reconstruction, K3b from the rewarp reconstruction, K6 from the solver
+   check.
 
 TF32 is switched off for matmuls and cuDNN: the reference computes in full
 float32 (``Precision.HIGHEST``).
@@ -51,6 +70,7 @@ import numpy as np
 H, W = 480, 640
 B, K = 4, 3
 UPDATES = 3
+VARIANT_UPDATES = 2
 SEED = 0
 
 TRACK = "tracks/koule-tr.yaml"
@@ -59,7 +79,24 @@ SWEEP_DEPTHS = 64
 SWEEP_MAINS = (6, 12, 18, 24)    # each with sides m-6, m-3, m+3, m+6
 SWEEP_SEED = 3
 VALID_FLOOR = 0.05
-E2E_MEDIAN, E2E_P90 = 0.20, 0.50
+SOLVER_N, SOLVER_H, SOLVER_W = 12, 240, 320
+ALPHA2 = 144.0  # alpha 12, the pipeline's
+
+# |r - R| / R bounds of the end-to-end meshes (median, p90). The default's
+# and the re-warp's: the default reconstruction's bound (the JAX package
+# measured the re-warp within draw noise of taylor, BASELINE.md). -f has
+# no published figure; on the CPU at 160x120 (-s 4, seed 3, the same JAX-
+# made frames for both; tests/test_torch_e2e_options.py run as a script)
+# the port gave median 0.0184 / p90 0.0537 and the JAX package 0.0186 /
+# 0.0555 (PERF.md): the bound is five times the larger of each, rounded
+# up.
+E2E_BOUNDS = {"default": (0.20, 0.50), "rewarp": (0.20, 0.50),
+              "farneback": (0.10, 0.30)}
+
+# H100 SXM data sheet: HBM bandwidth and float32 rate outside the tensor
+# cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
 
 
 def _device_lines(torch):
@@ -90,30 +127,74 @@ def _cuda_ms(torch, fn, reps, warm_up=True):
     return start.elapsed_time(end) / reps
 
 
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``nbytes`` (each input read once, each output written once) and to do
+    ``flops`` float32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 class Results:
-    """Per-kernel max error and the times at its first (main) shape."""
+    """Per-kernel max error, and the times and bound at its first (main)
+    shape."""
 
     def __init__(self):
         self.err = {}
-        self.ms = {}
+        self.main = {}
 
-    def add(self, kernel, label, err, bound, ms, plain_ms):
-        print(f"{kernel.name} [{label}]: max_abs_err {err:.3e} (bound "
-              f"{bound:.1e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    def add(self, kernel, label, err, bound, ms, plain_ms, work=None,
+            library_ms=None):
+        """``work``: (bytes, float32 operations) of the call, given at the
+        kernel's main shape, which is the first one added."""
+        text = (f"{kernel.name} [{label}]: max_abs_err {err:.3e} (bound "
+                f"{bound:.1e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if work is not None:
+            bound_ms, bound_by = _bound(*work)
+            text += (f", bound {bound_ms:.4f} ms ({bound_by}: "
+                     f"{work[0] / 1e6:.1f} MB, {work[1] / 1e9:.3f} GFLOP)")
+        if library_ms is not None:
+            text += f", library {library_ms:.4f} ms"
+        print(text)
         if not err <= bound:
             raise AssertionError(f"{kernel.name} [{label}]: max abs error "
                                  f"{err} exceeds {bound}")
         self.err[kernel.name] = max(self.err.get(kernel.name, 0.0), err)
-        self.ms.setdefault(kernel.name, (ms, plain_ms))
+        if kernel.name not in self.main:
+            if work is None:
+                raise AssertionError(f"{kernel.name}: main shape has no work")
+            self.main[kernel.name] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def _smooth_field(torch, gen, shape, scale, device):
     """Smooth random field: noise box-blurred twice (torch ops only)."""
     x = torch.randn(shape, generator=gen).to(device)
+    lead = x.shape[:-2]
+    x = x.reshape(-1, *x.shape[-2:])
     for _ in range(2):
         x = torch.nn.functional.avg_pool2d(x[:, None], 9, 1, 4,
                                            count_include_pad=False)[:, 0]
+    x = x.reshape(*lead, *x.shape[-2:])
     return x * (scale / x.abs().amax().clamp(min=1e-6))
+
+
+def _grid(torch, scol, srow):
+    """grid_sample's normalized grid (align_corners=True) for absolute
+    pixel coordinates (..., H, W) -> (N, H, W, 2)."""
+    h, w = scol.shape[-2:]
+    return torch.stack([scol * (2.0 / (w - 1)) - 1.0,
+                        srow * (2.0 / (h - 1)) - 1.0],
+                       -1).reshape(-1, h, w, 2)
+
+
+def _library_sample(torch, imgs, grid, mode):
+    """The PyTorch call that computes a border-clamped bilinear or bicubic
+    (a = -0.75, each tap clamped) sample: imgs (N, C, H, W)."""
+    return torch.nn.functional.grid_sample(
+        imgs, grid, mode=mode, padding_mode="border", align_corners=True)
 
 
 def kernel_phases(torch, dev, res, slice_args):
@@ -129,11 +210,12 @@ def kernel_phases(torch, dev, res, slice_args):
     gen = torch.Generator().manual_seed(SEED)
     cams = torch.cat([slice_args[2][:, None], slice_args[4]], 1).reshape(
         B * (K + 1), 4, 4)
+    ncam = B * (K + 1)
 
     # K1: 16 cameras, the 16k main-path soup and the 65k face cap; bitwise
     depth_sides = None
     for nt, nph in ((64, 128), (128, 256)):
-        label = f"{B * (K + 1)}x{H}x{W}, {2 * nt * nph} tris"
+        label = f"{ncam}x{H}x{W}, {2 * nt * nph} tris"
         soup, valid = (torch.from_numpy(a).to(dev) for a in
                        state.pack_soup(problems.sphere_soup(nt, nph)))
         out = binned.render_depth_binned(cams, soup, valid, H, W)
@@ -148,13 +230,22 @@ def kernel_phases(torch, dev, res, slice_args):
             cams, soup, valid, H, W), 10)
         plain_ms = _cuda_ms(torch, lambda: rasterizer.render_depth(
             cams, soup, valid, H, W), 1, warm_up=False)
-        res.add(binned.K1, label, err, 0.0, ms, plain_ms)
+        # bytes: cameras, soup, validity in, depth out; operations: each
+        # vertex projected by each camera (4x4 x 4: 28) and, at least, one
+        # fragment per covered pixel (3 edge functions + the depth plane,
+        # 4 each)
+        ntri = int(valid.sum().item())
+        work = (ncam * 64 + soup.numel() * 4 + valid.numel()
+                + ncam * H * W * 4,
+                ncam * ntri * 3 * 28 + covered * ncam * H * W * 16)
+        res.add(binned.K1, label, err, 0.0, ms, plain_ms, work=work)
         if depth_sides is None:
             depth_sides = out.reshape(B, K + 1, H, W)[:, 1:].reshape(
                 B * K, H, W)
 
     # K2: the side shadow maps and frames at a perturbed reprojection field
     n = B * K
+    px = n * H * W
     shadow = dilate3x3_max(depth_sides).contiguous()
     frames = slice_args[5].reshape(n, H, W).contiguous()
     cols = torch.arange(W, dtype=torch.float32, device=dev)
@@ -175,14 +266,43 @@ def kernel_phases(torch, dev, res, slice_args):
     plain_ms = _cuda_ms(torch, lambda: (nearest_sample(shadow, scol, srow),
                                         bilinear_sample(frames, scol, srow)),
                         10)
+    # the library call samples both sources bilinearly: the bilinear mode
+    lib_in = torch.stack([shadow, frames], 1).contiguous()
+    grid = _grid(torch, scol, srow)
+    lib_ms = _cuda_ms(torch, lambda: _library_sample(
+        torch, lib_in, grid, "bilinear"), 50)
+    # bytes: 4 float inputs, 2 float outputs a pixel; operations: ~20 for
+    # the bilinear weights and taps, 4 for the nearest pick
     # nearest is a pure index pick; bilinear repeats the plain order of
     # operations (-fmad=false), 1e-4 on the 0..255 scale absorbs nothing
     # but a changed rounding
-    res.add(tile_warp.K2, f"{n}x{H}x{W} nearest", err_a, 0.0, ms, plain_ms)
+    res.add(tile_warp.K2, f"{n}x{H}x{W} nearest", err_a, 0.0, ms, plain_ms,
+            work=(24 * px, 24 * px), library_ms=lib_ms)
     res.add(tile_warp.K2, f"{n}x{H}x{W} bilinear", err_b, 1e-4, ms, plain_ms)
+
+    # K2's bilinear shadow mode (--shadow-sample bilinear): A on B's taps
+    a_k, b_k = tile_warp.tile_warp_sample2_batched(shadow, frames, scol, srow,
+                                                   bilinear_a=True)
+    a_p = bilinear_sample(shadow, scol, srow)
+    lib = _library_sample(torch, lib_in, grid, "bilinear")
+    torch.cuda.synchronize()
+    err = max((a_k - a_p).abs().max().item(),
+              (b_k - b_p).abs().max().item())
+    lib_err = max((lib[:, 0] - a_k).abs().max().item(),
+                  (lib[:, 1] - b_k).abs().max().item())
+    ms = _cuda_ms(torch, lambda: tile_warp.tile_warp_sample2_batched(
+        shadow, frames, scol, srow, bilinear_a=True), 50)
+    plain_ms = _cuda_ms(torch, lambda: (bilinear_sample(shadow, scol, srow),
+                                        bilinear_sample(frames, scol, srow)),
+                        10)
+    print(f"sample_shadow_frame [bilinear shadow mode]: grid_sample differs "
+          f"from the kernel by {lib_err:.3e} at most (its normalized grid)")
+    res.add(tile_warp.K2, f"{n}x{H}x{W} bilinear shadow mode", err, 1e-4, ms,
+            plain_ms)
 
     # K3 and K4 at both pyramid levels of the flow solve
     for h, w in ((H, W), (H // 2, W // 2)):
+        npx = n * h * w
         img = (127.5 + _smooth_field(torch, gen, (n, h, w), 120.0,
                                      dev)).contiguous()
         u = _smooth_field(torch, gen, (n, h, w), 3.0, dev).contiguous()
@@ -195,77 +315,232 @@ def kernel_phases(torch, dev, res, slice_args):
             img, u, v), 50)
         plain_ms = _cuda_ms(torch, lambda: bilinear_warp(
             img, torch.stack([u, v], -1)), 10)
-        res.add(tile_warp.K3, f"{n}x{h}x{w}", err, 1e-4, ms, plain_ms)
+        ccols = torch.arange(w, dtype=torch.float32, device=dev)
+        crows = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+        grid = _grid(torch, ccols + u, crows + v)
+        lib_in = img[:, None]
+        lib_ms = _cuda_ms(torch, lambda: _library_sample(
+            torch, lib_in, grid, "bilinear"), 50)
+        # bytes: image, u, v in, one float out; ~22 operations a pixel
+        res.add(tile_warp.K3, f"{n}x{h}x{w}", err, 1e-4, ms, plain_ms,
+                work=(16 * npx, 22 * npx), library_ms=lib_ms)
 
         prev = (127.5 + _smooth_field(torch, gen, (n, h, w), 120.0,
                                       dev)).contiguous()
         warped = (prev + _smooth_field(torch, gen, (n, h, w), 6.0,
                                        dev)).contiguous()
-        uk, vk = jacobi.hs_level_fused(prev, warped, u, v, 144.0, iters=14,
+        uk, vk = jacobi.hs_level_fused(prev, warped, u, v, ALPHA2, iters=14,
                                        solver="cheb")
-        up, vp = _hs_sweeps_cheb(prev, warped, u, v, 144.0, 14)
+        up, vp = _hs_sweeps_cheb(prev, warped, u, v, ALPHA2, 14)
         torch.cuda.synchronize()
         err = max((uk - up).abs().max().item(), (vk - vp).abs().max().item())
         ms = _cuda_ms(torch, lambda: jacobi.hs_level_fused(
-            prev, warped, u, v, 144.0, iters=14, solver="cheb"), 20)
+            prev, warped, u, v, ALPHA2, iters=14, solver="cheb"), 20)
         plain_ms = _cuda_ms(torch, lambda: _hs_sweeps_cheb(
-            prev, warped, u, v, 144.0, 14), 5)
+            prev, warped, u, v, ALPHA2, 14), 5)
         # the kernel folds the data term into cc and 1/denom
-        # (pallas_jacobi.py's form), the plain version does not: 1e-4 px
+        # (pallas_jacobi.py's form), the plain version does not: 1e-4 px.
+        # bytes: prev, warped, u0, v0 in, u, v out; operations: 22 for the
+        # linearization, 33 a Chebyshev sweep
         res.add(jacobi.K4, f"{n}x{h}x{w}, 14 cheb sweeps", err, 1e-4, ms,
-                plain_ms)
+                plain_ms, work=(24 * npx, (22 + 14 * 33) * npx))
 
 
-def run_slice(torch, dev, args_np):
+def k3b_phase(torch, dev, res):
+    """K3b against flow_remap: the e2e re-warp's B*K=12 stack and the K=8
+    bucket, a smooth flow of a few px pushed 20 px off the left border on
+    its first 16 columns and off the bottom on its last 8 rows, so that
+    every tap there clamps."""
+    from meshrecon_torch.flow import tile_warp
+    from meshrecon_torch.flow.remap import flow_remap
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for shape in ((B * K, H, W), (B, 8, H, W)):
+        px = int(np.prod(shape))
+        label = "x".join(map(str, shape))
+        img = (127.5 + _smooth_field(torch, gen, shape, 120.0,
+                                     dev)).contiguous()
+        u = _smooth_field(torch, gen, shape, 3.0, dev)
+        v = _smooth_field(torch, gen, shape, 3.0, dev)
+        u[..., :16] -= 20.0
+        v[..., -8:, :] += 20.0
+        u, v = u.contiguous(), v.contiguous()
+        out = tile_warp.tile_warp_flow_batched(img, u, v, taps=4)
+        ref = flow_remap(torch.stack([u, v], -1), img)
+        cols = torch.arange(W, dtype=torch.float32, device=dev)
+        rows = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+        grid = _grid(torch, cols + u, rows + v)
+        lib_in = img.reshape(-1, 1, H, W)
+        lib = _library_sample(torch, lib_in, grid, "bicubic")
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        lib_err = (lib.reshape(shape) - ref).abs().max().item()
+        ms = _cuda_ms(torch, lambda: tile_warp.tile_warp_flow_batched(
+            img, u, v, taps=4), 50)
+        plain_ms = _cuda_ms(torch, lambda: flow_remap(
+            torch.stack([u, v], -1), img), 5)
+        lib_ms = _cuda_ms(torch, lambda: _library_sample(
+            torch, lib_in, grid, "bicubic"), 50)
+        print(f"warp_bicubic [{label}]: grid_sample(bicubic, border) "
+              f"differs from flow_remap by {lib_err:.3e} at most (its "
+              f"normalized grid)")
+        # the twin's weights and tap order, -fmad=false: 1e-4 on 0..255.
+        # bytes: image, u, v in, one float out; operations: ~34 for the
+        # 4 + 4 weights, 32 for the 16 taps, 8 for the row sums, 6 for the
+        # coordinates
+        res.add(tile_warp.K3B, label, err, 1e-4, ms, plain_ms,
+                work=(16 * px, 80 * px), library_ms=lib_ms)
+
+
+def _linearization(torch, dev, gen, n, h, w):
+    """A stack of smooth images shifted by (3, -2) px, warped (K3) by the
+    flow (2.5, -1.5): the problem of tests/test_multigrid.py. Returns
+    (prev, warped, u0, v0)."""
+    from meshrecon_torch.flow import tile_warp
+
+    base = 127.5 + _smooth_field(torch, gen, (n, h + 8, w + 8), 120.0, dev)
+    prev = base[:, 4:4 + h, 4:4 + w].contiguous()
+    nxt = base[:, 6:6 + h, 1:1 + w].contiguous()  # next(c+3, r-2) = prev
+    u0 = torch.full((n, h, w), 2.5, device=dev)
+    v0 = torch.full((n, h, w), -1.5, device=dev)
+    return prev, tile_warp.tile_warp_flow_batched(nxt, u0, v0), u0, v0
+
+
+def k6_phase(torch, dev, res):
+    """K6 against hs_jacobi_plain: 60 sweeps at 12x480x640."""
+    from meshrecon_torch.flow import jacobi
+    from meshrecon_torch.flow.multigrid import hs_fields
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    n = B * K
+    px = n * H * W
+    prev, warped, u0, v0 = _linearization(torch, dev, gen, n, H, W)
+    ix, iy, c = (t.contiguous() for t in hs_fields(prev, warped, u0, v0))
+    uk, vk = jacobi.hs_jacobi(ix, iy, c, u0, v0, ALPHA2, iters=60)
+    up, vp = jacobi.hs_jacobi_plain(ix, iy, c, u0, v0, ALPHA2, iters=60)
+    torch.cuda.synchronize()
+    err = max((uk - up).abs().max().item(), (vk - vp).abs().max().item())
+    ms = _cuda_ms(torch, lambda: jacobi.hs_jacobi(ix, iy, c, u0, v0, ALPHA2,
+                                                  iters=60), 10)
+    plain_ms = _cuda_ms(torch, lambda: jacobi.hs_jacobi_plain(
+        ix, iy, c, u0, v0, ALPHA2, iters=60), 3)
+    # the plain version's arithmetic in its order (-fmad=false); 1e-3 px is
+    # the JAX package's bound for hs_jacobi (tests/test_pallas_jacobi.py).
+    # bytes: ix, iy, c, u0, v0 in, u, v out; operations: 5 for 1/denom,
+    # 27 a sweep (two 9-operation averages, the data term, the update)
+    res.add(jacobi.K6, f"{n}x{H}x{W}, 60 sweeps", err, 1e-3, ms, plain_ms,
+            work=(28 * px, (5 + 60 * 27) * px))
+
+
+def solver_check(torch, dev):
+    """The multigrid solver against the K6 fixed point, on the card and
+    against the port's CPU solve. Returns the launch counts of the run."""
+    from meshrecon_torch.flow import jacobi
+    from meshrecon_torch.flow.multigrid import hs_fields, hs_solve_mg
+    from meshrecon_torch.kernels import all_kernels
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    n, h, w = SOLVER_N, SOLVER_H, SOLVER_W
+    prev, warped, u0, v0 = _linearization(torch, dev, gen, n, h, w)
+    torch.cuda.synchronize()
+    for k in all_kernels():
+        k.launches = 0
+    t0 = time.perf_counter()
+    ix, iy, c = (t.contiguous() for t in hs_fields(prev, warped, u0, v0))
+    u_star, v_star = jacobi.hs_jacobi(ix, iy, c, u0, v0, ALPHA2, iters=1500)
+    u60, v60 = jacobi.hs_jacobi(ix, iy, c, u0, v0, ALPHA2, iters=60)
+    um, vm = hs_solve_mg(prev, warped, u0, v0, ALPHA2, cycles=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in all_kernels()}
+
+    def interior_err(u, v):
+        return ((u - u_star)[:, 8:-8, 8:-8].abs().max()
+                + (v - v_star)[:, 8:-8, 8:-8].abs().max()).item()
+
+    err_mg, err_60 = interior_err(um, vm), interior_err(u60, v60)
+    mg_ms = _cuda_ms(torch, lambda: hs_solve_mg(prev, warped, u0, v0,
+                                                ALPHA2, cycles=2), 5)
+    t0 = time.perf_counter()
+    cu, cv = hs_solve_mg(*(t.cpu() for t in (prev, warped, u0, v0)), ALPHA2,
+                         cycles=2)
+    cpu_s = time.perf_counter() - t0
+    diff = max((um.cpu() - cu).abs().max().item(),
+               (vm.cpu() - cv).abs().max().item())
+    print(f"solver check [{n}x{h}x{w}]: interior error against the "
+          f"1,500-sweep K6 fixed point: mg (2 cycles) {err_mg:.4f} px, 60 "
+          f"K6 sweeps {err_60:.4f} px (mg must beat it and stay under 1 "
+          f"px); card mg vs CPU mg {diff:.3e} px (bound 1e-3); mg {mg_ms:.3f}"
+          f" ms on the card, {cpu_s:.2f} s on the CPU; the check took "
+          f"{wall:.3f} s, launches {launches}")
+    if not (err_mg < err_60 and err_mg < 1.0):
+        raise AssertionError(f"mg error {err_mg} does not beat 60 Jacobi "
+                             f"sweeps ({err_60}) or exceeds 1 px")
+    # the same torch ops in the same order on both devices: 1e-3 px, the
+    # fixed point's own bound
+    if not diff <= 1e-3:
+        raise AssertionError(f"card mg differs from CPU mg by {diff}")
+    if launches[jacobi.K6.name] == 0:
+        raise AssertionError("K6 not launched by the solver check")
+    return launches
+
+
+def _check_update(out, label):
+    from meshrecon_torch import state
+
+    out = state.to_numpy(out)
+    valid = out["valid"]
+    share = float(valid.mean())
+    print(f"{label}: valid share {share:.4f} (floor 0.05)")
+    if share < 0.05:
+        raise AssertionError(f"{label}: valid share {share} below 0.05")
+    for key in ("point4", "normals", "pdf"):
+        if not np.isfinite(out[key][valid]).all():
+            raise AssertionError(f"{label}: non-finite {key} on valid pixels")
+    return out
+
+
+def run_slice(torch, dev, args_np, label, updates, path, **options):
+    """``updates`` fused updates with ``options`` on the card, counters
+    reset just before; every kernel of ``path`` must launch; batch item 0
+    against the plain run of the same inputs on the CPU."""
     from meshrecon_torch import parity, state
-    from meshrecon_torch.flow import jacobi, tile_warp
+    from meshrecon_torch.kernels import all_kernels
     from meshrecon_torch.pipeline.fused import (FusedMainUpdate,
                                                 fused_main_update_batched)
-    from meshrecon_torch.raster import binned
 
     args = state.from_numpy(args_np, dev)
-    model = FusedMainUpdate(H, W).to(dev)
-    kernels = (binned.K1, tile_warp.K2, tile_warp.K3, jacobi.K4)
-    for k in kernels:
+    model = FusedMainUpdate(H, W, **options).to(dev)
+    for k in all_kernels():
         k.launches = 0
     times = []
-    for _ in range(UPDATES):
+    for _ in range(updates):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = model(*args)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = {k.name: k.launches for k in kernels}
-    print(f"flow update: B={B} K={K} {W}x{H}, {int(args_np[1].sum())} "
-          f"tris, "
+    launches = {k.name: k.launches for k in all_kernels()}
+    print(f"{label}: B={B} K={K} {W}x{H}, {int(args_np[1].sum())} tris, "
           f"ms/update {[round(t, 3) for t in times]}, "
           f"GN sweeps {model.last_gn_sweeps}, launches {launches}")
-    missing = [name for name, n in launches.items() if n == 0]
+    missing = [k.name for k in path if launches[k.name] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched by the flow update: "
-                             f"{missing}")
-
-    out = state.to_numpy(out)
-    valid = out["valid"]
-    share = float(valid.mean())
-    print(f"flow update: valid share {share:.4f} (floor 0.05)")
-    if share < 0.05:
-        raise AssertionError(f"valid share {share} below 0.05")
-    for key in ("point4", "normals", "pdf"):
-        if not np.isfinite(out[key][valid]).all():
-            raise AssertionError(f"non-finite {key} on valid pixels")
+        raise AssertionError(f"{label}: kernels not launched: {missing}")
+    out = _check_update(out, label)
 
     # batch item 0 against the plain versions on the CPU, at B=1
     t0 = time.perf_counter()
     cpu = state.to_numpy(fused_main_update_batched(
         *state.from_numpy([a[:1] if i > 1 else a
-                           for i, a in enumerate(args_np)], "cpu"), H, W))
-    print(f"flow update: CPU plain run of item 0 took "
+                           for i, a in enumerate(args_np)], "cpu"), H, W,
+        **options))
+    print(f"{label}: CPU plain run of item 0 took "
           f"{time.perf_counter() - t0:.1f} s")
-    metrics = parity.check_slice(
-        {k: v[:1] for k, v in out.items()}, cpu)
-    print("flow update vs CPU (meshrecon_torch/parity.py bounds): "
+    metrics = parity.slice_agreement({k: v[:1] for k, v in out.items()}, cpu)
+    print(f"{label} vs CPU (meshrecon_torch/parity.py bounds): "
           + ", ".join(f"{k} {v:.3e}" for k, v in metrics.items()))
+    parity.check_slice({k: v[:1] for k, v in out.items()}, cpu)
 
 
 def sweep_problem(torch, dev):
@@ -334,6 +609,7 @@ def k3c_phase(torch, dev, res, sweep_args):
         scol, srow, ok = (torch.cat(f, 1).contiguous() for f in zip(*parts))
         srcs = torch.cat([sfs] * len(parts), 1).contiguous()
         b, k = srcs.shape[:2]
+        px = b * k * H * W
         share = ok.float().mean().item()
         label = f"{b}x{k}x{H}x{W} valid pixels"
         print(f"sample_bilinear_masked [{label}]: valid share {share:.4f}")
@@ -351,8 +627,16 @@ def k3c_phase(torch, dev, res, sweep_args):
         plain_ms = _cuda_ms(
             torch, lambda: tile_warp.sample_bilinear_masked_plain(
                 srcs, scol, srow, ok), 10)
-        # the same arithmetic in the same order (-fmad=false): 1e-4 on 0..255
-        res.add(tile_warp.K3C, label, err, 1e-4, ms, plain_ms)
+        # the library call samples every pixel and does not mask
+        grid = _grid(torch, scol, srow)
+        lib_in = srcs.reshape(-1, 1, H, W)
+        lib_ms = _cuda_ms(torch, lambda: _library_sample(
+            torch, lib_in, grid, "bilinear"), 50)
+        # the same arithmetic in the same order (-fmad=false): 1e-4 on
+        # 0..255. bytes: image, coordinates, mask byte in, one float out;
+        # ~22 operations a valid pixel
+        res.add(tile_warp.K3C, label, err, 1e-4, ms, plain_ms,
+                work=(17 * px, 22 * share * px), library_ms=lib_ms)
 
 
 def _swept_ndc(out, mains):
@@ -421,8 +705,10 @@ def run_sweep(torch, dev, args_np):
         raise AssertionError("sweep update disagrees with its CPU run")
 
 
-def run_e2e(torch, dev):
-    """The default reconstruction through the CLI, in-process."""
+def run_e2e(torch, dev, label, flags, path):
+    """One reconstruction through the CLI, in-process, with ``flags``; the
+    counters reset just before, every kernel of ``path`` must launch.
+    Returns the launch counts."""
     from meshrecon_torch import cli
     from meshrecon_torch.io.obj import read_mesh
     from meshrecon_torch.io.synthetic import fit_sphere
@@ -432,7 +718,8 @@ def run_e2e(torch, dev):
 
     out_dir = Path("build") / "chip_smoke"  # git-ignored
     out_dir.mkdir(parents=True, exist_ok=True)
-    obj = out_dir / "chip_smoke_e2e.obj"
+    suffix = "" if label == "default" else f"_{label}"
+    obj = out_dir / f"chip_smoke_e2e{suffix}.obj"
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
@@ -440,31 +727,34 @@ def run_e2e(torch, dev):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = cli.main([TRACK, "--synthetic", "sphere", "--seed", "3", "-o",
-                   str(obj), "--device", "cuda", "-v"], timer=timer)
+                   str(obj), "--device", "cuda", "-v", *flags], timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
-    print(f"e2e: cli.main rc {rc}, wall {wall:.2f} s, launches {launches}")
-    print("e2e stages (card-synchronized wall seconds):")
+    print(f"e2e {label} {flags}: cli.main rc {rc}, wall {wall:.2f} s, "
+          f"launches {launches}")
+    print(f"e2e {label} stages (card-synchronized wall seconds):")
     for line in timer.report().splitlines():
         print(f"  {line}")
-    missing = [name for name, n in launches.items() if n == 0]
+    missing = [k.name for k in path if launches[k.name] == 0]
     if rc != 0 or missing:
-        raise AssertionError(f"e2e: rc {rc}, kernels not launched {missing}")
+        raise AssertionError(f"e2e {label}: rc {rc}, kernels not launched "
+                             f"{missing}")
     mesh = read_mesh(str(obj))
     track = load_tracks(TRACK)
     center, radius = fit_sphere(track.bundles)
     v3 = mesh.vertices[:, :3] / mesh.vertices[:, 3:4]
     err = np.abs(np.linalg.norm(v3 - center, axis=1) - radius) / radius
     med, p90 = float(np.median(err)), float(np.percentile(err, 90))
-    print(f"e2e: {len(mesh.faces)} faces, {len(mesh.vertices)} vertices; "
-          f"|r - R| / R median {med:.4f} (bound {E2E_MEDIAN}), p90 "
-          f"{p90:.4f} (bound {E2E_P90})")
+    bound_med, bound_p90 = E2E_BOUNDS[label]
+    print(f"e2e {label}: {len(mesh.faces)} faces, {len(mesh.vertices)} "
+          f"vertices; |r - R| / R median {med:.4f} (bound {bound_med}), "
+          f"p90 {p90:.4f} (bound {bound_p90})")
     if not len(mesh.faces) or not np.isfinite(v3).all():
-        raise AssertionError("e2e: empty or non-finite mesh")
-    if not (med <= E2E_MEDIAN and p90 <= E2E_P90):
-        raise AssertionError(f"e2e: mesh off the sphere (median {med}, "
-                             f"p90 {p90})")
+        raise AssertionError(f"e2e {label}: empty or non-finite mesh")
+    if not (med <= bound_med and p90 <= bound_p90):
+        raise AssertionError(f"e2e {label}: mesh off the sphere (median "
+                             f"{med}, p90 {p90})")
     return launches
 
 
@@ -485,8 +775,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from meshrecon_torch import problems, state
+    from meshrecon_torch.flow import jacobi, tile_warp
     from meshrecon_torch.kernels import all_kernels, library
     from meshrecon_torch.meshing import native
+    from meshrecon_torch.raster import binned
     # the wrappers own the Kernel objects: import them before listing
     import meshrecon_torch.pipeline.fused  # noqa: F401
     import meshrecon_torch.pipeline.reconstruct  # noqa: F401
@@ -496,6 +788,7 @@ def main() -> int:
     print("tf32: off (matmul and cuDNN)")
     _device_lines(torch)
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     lib = library()
     print(f"build: {lib.build_seconds:.1f} s -> {lib.path.name}")
@@ -506,24 +799,51 @@ def main() -> int:
     native.library()  # the host meshing library, outside the timed phases
     print(f"build: native meshing library {time.perf_counter() - t0:.1f} s")
 
+    K1, K2, K3, K3B, K3C, K4, K6 = (
+        binned.K1, tile_warp.K2, tile_warp.K3, tile_warp.K3B, tile_warp.K3C,
+        jacobi.K4, jacobi.K6)
     args_np = list(problems.fused_problem(B, K, H, W, seed=SEED))
     args_np[0], args_np[1] = state.pack_soup(problems.sphere_soup(64, 128))
     res = Results()
     kernel_phases(torch, dev, res, state.from_numpy(args_np, dev))
+    k3b_phase(torch, dev, res)
+    k6_phase(torch, dev, res)
     torch.cuda.synchronize()
-    run_slice(torch, dev, args_np)
+    solver_launches = solver_check(torch, dev)
+
+    run_slice(torch, dev, args_np, "flow update", UPDATES,
+              (K1, K2, K3, K4))
+    for label, path, options in (
+            ("flow update rewarp", (K1, K2, K3, K4, K3B),
+             dict(variance="rewarp")),
+            ("flow update farneback", (K1, K2, K3, K3B),
+             dict(use_farneback=True)),
+            ("flow update mg", (K1, K2, K3), dict(flow_solver="mg")),
+            ("flow update shadow bilinear", (K1, K2, K3, K4),
+             dict(shadow_sample="bilinear"))):
+        run_slice(torch, dev, args_np, label, VARIANT_UPDATES, path,
+                  **options)
 
     sweep_args = sweep_problem(torch, dev)
     k3c_phase(torch, dev, res, state.from_numpy(sweep_args, dev))
     run_sweep(torch, dev, sweep_args)
-    launches = run_e2e(torch, dev)
+    default = run_e2e(torch, dev, "default", [], (K1, K2, K3, K3C, K4))
+    rewarp = run_e2e(torch, dev, "rewarp", ["--variance-mode", "rewarp"],
+                     (K1, K2, K3, K3C, K4, K3B))
+    run_e2e(torch, dev, "farneback", ["-f"], (K1, K2, K3, K3C, K3B))
 
-    kernels = [{
-        "name": k.name, "route": "cuda", "source": k.source,
-        "replaces": k.replaces, "launches": launches[k.name],
-        "max_abs_err": res.err[k.name], "ms": res.ms[k.name][0],
-        "plain_ms": res.ms[k.name][1],
-    } for k in all_kernels()]
+    # each kernel's launches on the path it serves
+    path_launches = {k.name: default[k.name] for k in (K1, K2, K3, K3C, K4)}
+    path_launches[K3B.name] = rewarp[K3B.name]
+    path_launches[K6.name] = solver_launches[K6.name]
+    print("launches: K1, K2, K3, K3c, K4 from the default reconstruction, "
+          "K3b from the rewarp reconstruction, K6 from the solver check")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
+          f"device check")
+    kernels = [dict(
+        name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+        launches=path_launches[k.name], max_abs_err=res.err[k.name],
+        **res.main[k.name]) for k in all_kernels()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,8 @@ Every Pallas kernel of the ported path is a CUDA C++ kernel for ``sm_90a``
 PyTorch version for a tensor on the CPU and launches the kernel for a tensor
 on a CUDA device; it never falls back from one to the other.
 
-Layer map (ported: the default reconstruction, track YAML to OBJ):
+Layer map (ported: the reconstruction, track YAML to OBJ, with the flow
+update's options):
 
 - ``meshrecon_torch.cli``      -- ``python -m meshrecon_torch.cli``
 - ``meshrecon_torch.pipeline`` -- config, the refinement loop
@@ -19,8 +20,11 @@ Layer map (ported: the default reconstruction, track YAML to OBJ):
 - ``meshrecon_torch.raster``   -- clip/project setup, plain z-buffer render,
   occlusion probe, ``Renderer``, tile binning + the binned raster kernel
   (K1), projective texturing (K2)
-- ``meshrecon_torch.flow``     -- pyramids, bilinear warp (K3), masked
-  bilinear sample (K3c), Horn-Schunck relaxation (K4), variational flow
+- ``meshrecon_torch.flow``     -- pyramids, bilinear warp (K3), bicubic
+  re-warp (K3b), masked bilinear sample (K3c), Horn-Schunck relaxation
+  (K4) and Jacobi sweeps given the fields (K6), variational flow with the
+  Chebyshev, Jacobi and multigrid solvers, Farneback flow,
+  ``calculate_flow``
 - ``meshrecon_torch.depth``    -- plane sweep, Gauss-Newton triangulation,
   normals
 - ``meshrecon_torch.points``   -- the density point filter

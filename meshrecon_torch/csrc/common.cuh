@@ -23,22 +23,40 @@ static inline int mr_blocks(long long n, int threads) {
 // border clamp of meshrecon/raster/fragment.py::bilinear_sample: the
 // coordinate is clamped to [0, w-1] x [0, h-1] first, the +1 taps then
 // clamp to the last row/column. Weights associate left to right exactly as
-// the plain version writes them.
+// the plain version writes them. The taps and fractions are computed once
+// (mr_bilinear_taps) and may serve several images of one shape.
+struct MrTaps {
+  int r0, r1, c0, c1;
+  float fr, fc;
+};
+
+__device__ __forceinline__ MrTaps mr_bilinear_taps(float col, float row,
+                                                   int h, int w) {
+  col = fminf(fmaxf(col, 0.0f), (float)(w - 1));
+  row = fminf(fmaxf(row, 0.0f), (float)(h - 1));
+  MrTaps t;
+  t.c0 = (int)floorf(col);
+  t.r0 = (int)floorf(row);
+  t.c1 = min(t.c0 + 1, w - 1);
+  t.r1 = min(t.r0 + 1, h - 1);
+  t.fc = col - (float)t.c0;
+  t.fr = row - (float)t.r0;
+  return t;
+}
+
+__device__ __forceinline__ float mr_bilinear_apply(
+    const float* __restrict__ img, const MrTaps& t, int w) {
+  const float v00 = img[t.r0 * w + t.c0];
+  const float v01 = img[t.r0 * w + t.c1];
+  const float v10 = img[t.r1 * w + t.c0];
+  const float v11 = img[t.r1 * w + t.c1];
+  const float fr = t.fr, fc = t.fc;
+  return v00 * (1.0f - fr) * (1.0f - fc) + v01 * (1.0f - fr) * fc +
+         v10 * fr * (1.0f - fc) + v11 * fr * fc;
+}
+
 __device__ __forceinline__ float mr_bilinear(const float* __restrict__ img,
                                              float col, float row, int h,
                                              int w) {
-  col = fminf(fmaxf(col, 0.0f), (float)(w - 1));
-  row = fminf(fmaxf(row, 0.0f), (float)(h - 1));
-  const int c0 = (int)floorf(col);
-  const int r0 = (int)floorf(row);
-  const int c1 = min(c0 + 1, w - 1);
-  const int r1 = min(r0 + 1, h - 1);
-  const float fc = col - (float)c0;
-  const float fr = row - (float)r0;
-  const float v00 = img[r0 * w + c0];
-  const float v01 = img[r0 * w + c1];
-  const float v10 = img[r1 * w + c0];
-  const float v11 = img[r1 * w + c1];
-  return v00 * (1.0f - fr) * (1.0f - fc) + v01 * (1.0f - fr) * fc +
-         v10 * fr * (1.0f - fc) + v11 * fr * fc;
+  return mr_bilinear_apply(img, mr_bilinear_taps(col, row, h, w), w);
 }

@@ -1,5 +1,6 @@
 // K4: Horn-Schunck relaxation sweeps (Chebyshev or plain Jacobi), one
-// thread per pixel, one launch per sweep.
+// thread per pixel, one launch per sweep. K6: the same sweeps given the
+// linearization's fields.
 //
 // Replaces meshrecon/flow/pallas_jacobi.py::_fused_sweep_kernel (launched by
 // hs_level_fused). Plain version: meshrecon_torch.flow.variational
@@ -17,6 +18,16 @@
 // double and rounded to float (a_k = 1, b_k = 0 gives plain Jacobi). The TPU
 // kernel restarts its schedule per band chunk when iters > 24; this one
 // never does.
+//
+// K6 replaces meshrecon/flow/pallas_jacobi.py::_sweep_kernel (launched by
+// hs_jacobi, the fixed-point reference of the multigrid solver): plain
+// Jacobi sweeps (a_k = 1, b_k = 0) given (Ix, Iy, c) with
+// c = It - Ix*u0 - Iy*v0. Its first launch reads those three fields, writes
+// 1/(alpha^2 + Ix^2 + Iy^2) and runs the first sweep; later launches are
+// K4's. Plain version: meshrecon_torch.flow.jacobi.hs_jacobi_plain. The TPU
+// kernel's row bands, halos, vertically stacked batches and roll-plus-
+// select borders exist for VMEM and are not ported: each pixel clamps its
+// own neighbour indices.
 //
 // What bounds it here: device-memory bandwidth, about 10 floats moved per
 // pixel per sweep against ~30 flops. Neighbour reads of u, v hit L1/L2.
@@ -55,7 +66,12 @@ __device__ __forceinline__ float hs_average(const float* __restrict__ f,
   return s4 / 6.0f + s8 / 12.0f;
 }
 
-template <bool kSetup>
+// kMode: kSweep reads the stored fields; kSetup derives them from (a, b,
+// u0, v0) and stores all four; kSetupFields reads ix, iy, cc and stores
+// invd.
+enum Mode { kSweep = 0, kSetup = 1, kSetupFields = 2 };
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 hs_sweep_kernel(const float* __restrict__ a, const float* __restrict__ b,
                 const float* __restrict__ u0, const float* __restrict__ v0,
@@ -75,7 +91,7 @@ hs_sweep_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const Nbr n = neighbours(r, c, height, width);
 
   float ix, iy, cc, invd;
-  if (kSetup) {
+  if (kMode == kSetup) {
     const float* ai = a + base;
     const float* bi = b + base;
     const int row = r * width;
@@ -90,6 +106,12 @@ hs_sweep_kernel(const float* __restrict__ a, const float* __restrict__ b,
     ix_f[idx] = ix;
     iy_f[idx] = iy;
     cc_f[idx] = cc;
+    invd_f[idx] = invd;
+  } else if (kMode == kSetupFields) {
+    ix = ix_f[idx];
+    iy = iy_f[idx];
+    cc = cc_f[idx];
+    invd = 1.0f / (alpha2 + ix * ix + iy * iy);
     invd_f[idx] = invd;
   } else {
     ix = ix_f[idx];
@@ -132,13 +154,46 @@ MR_EXPORT int mr_hs_sweep(const float* a, const float* b, const float* u0,
   const int blocks = mr_blocks(total, kThreads);
   cudaStream_t s = (cudaStream_t)stream;
   if (setup) {
-    hs_sweep_kernel<true><<<blocks, kThreads, 0, s>>>(
+    hs_sweep_kernel<kSetup><<<blocks, kThreads, 0, s>>>(
         a, b, u0, v0, ix, iy, cc, invd, u_cur, v_cur, u_prev, v_prev, u_out,
         v_out, ak, bk, alpha2, total, height, width);
   } else {
-    hs_sweep_kernel<false><<<blocks, kThreads, 0, s>>>(
+    hs_sweep_kernel<kSweep><<<blocks, kThreads, 0, s>>>(
         a, b, u0, v0, ix, iy, cc, invd, u_cur, v_cur, u_prev, v_prev, u_out,
         v_out, ak, bk, alpha2, total, height, width);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K6, one plain Jacobi sweep given the fields; all (n, height, width).
+// setup != 0: read ix, iy, cc and write invd first; otherwise read all
+// four. u_out/v_out never alias u_cur/v_cur.
+MR_EXPORT int mr_hs_jacobi_fields(const float* ix, const float* iy,
+                                  const float* cc, float* invd,
+                                  const float* u_cur, const float* v_cur,
+                                  float* u_out, float* v_out, float alpha2,
+                                  int setup, int n, int height, int width,
+                                  void* stream) {
+  const long long total = (long long)n * height * width;
+  if (total == 0) return 0;
+  if (u_out == u_cur || v_out == v_cur) return (int)cudaErrorInvalidValue;
+  const int blocks = mr_blocks(total, kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+  // the fields are read-only here; the kernel's shared signature takes
+  // them as writable for K4's setup
+  float* fx = const_cast<float*>(ix);
+  float* fy = const_cast<float*>(iy);
+  float* fc = const_cast<float*>(cc);
+  if (setup) {
+    hs_sweep_kernel<kSetupFields><<<blocks, kThreads, 0, s>>>(
+        nullptr, nullptr, nullptr, nullptr, fx, fy, fc, invd, u_cur, v_cur,
+        u_cur, v_cur, u_out, v_out, 1.0f, 0.0f, alpha2, total, height,
+        width);
+  } else {
+    hs_sweep_kernel<kSweep><<<blocks, kThreads, 0, s>>>(
+        nullptr, nullptr, nullptr, nullptr, fx, fy, fc, invd, u_cur, v_cur,
+        u_cur, v_cur, u_out, v_out, 1.0f, 0.0f, alpha2, total, height,
+        width);
   }
   return (int)cudaGetLastError();
 }

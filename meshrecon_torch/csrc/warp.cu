@@ -1,14 +1,28 @@
-// K2, K3 and K3c: per-pixel gathers, one thread per output pixel.
+// K2, K3, K3b and K3c: per-pixel gathers, one thread per output pixel.
 //
 // K2 replaces meshrecon/flow/tile_warp.py::_warp_tile_kernel2 (launched by
 // tile_warp_sample2 / tile_warp_sample2_batched for projective texturing):
 // two same-shape stacks sampled at one coordinate field, source A (the
 // dilated shadow depth) nearest with floor(x + 0.5) and a border clamp,
-// source B (the side frame) bilinear with a border clamp.
+// source B (the side frame) bilinear with a border clamp. Its bilinear
+// mode (the TPU kernel's nearest_a=False, --shadow-sample bilinear)
+// samples A bilinearly too, on B's taps and fractions.
 //
 // K3 replaces meshrecon/flow/tile_warp.py::_warp_tile_kernel with taps=2
 // (tile_warp_flow_batched, the flow solver's warps): one stack resampled
 // bilinearly at (col + u, row + v).
+//
+// K3b replaces the same _warp_tile_kernel with taps=4
+// (tile_warp_flow_batched(..., taps=4) from meshrecon/pipeline/fused.py:241,
+// the variance re-warp of --variance-mode rewarp and -f): one stack
+// resampled at (col + u, row + v) by the Keys bicubic kernel (a = -0.75,
+// OpenCV's CV_INTER_CUBIC) over 4x4 taps, each tap index clamped to the
+// border. It repeats meshrecon_torch.flow.remap.bicubic_sample operation
+// for operation: the weights are the twin's polynomials in the fraction t
+// (not the TPU kernel's |t|-piecewise form), the 16 taps are summed over
+// the columns j inside the rows i. Each thread computes its 4 + 4 weights
+// once and gathers its 16 taps; there is no residual budget, so unlike the
+// TPU kernel (r_row=6, r_col=8) nothing is clamped at motion edges.
 //
 // K3c replaces the same _warp_tile_kernel called with a valid mask
 // (tile_warp_sample_batched(..., valid=) from the plane sweep,
@@ -20,9 +34,11 @@
 //
 // What bounds them here: device-memory bandwidth. K2 reads 4 floats per
 // pixel of coordinates and sources' taps and writes 2; K3 reads 3 and
-// writes 1; K3c reads 2 floats and a byte, plus the taps where valid, and
-// writes 1. The taps of neighbouring threads share cache lines, so the
-// gathers mostly hit L1/L2; there is no arithmetic to speak of.
+// writes 1; K3b reads 3 and writes 1 too, with ~70 flops a pixel for its
+// weights and 16 taps (bytes still bound it: 16 B against 67 TFLOP/s);
+// K3c reads 2 floats and a byte, plus the taps where valid, and writes 1.
+// The taps of neighbouring threads share cache lines, so the gathers
+// mostly hit L1/L2.
 //
 // Design: the TPU kernels exist because TPU gathers are slow; they fit a
 // per-tile integer base offset and enumerate bounded residual taps, and
@@ -37,6 +53,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kBilinearA>
 __global__ void __launch_bounds__(kThreads)
 sample_shadow_frame_kernel(const float* __restrict__ shadow,
                            const float* __restrict__ frame,
@@ -53,12 +70,19 @@ sample_shadow_frame_kernel(const float* __restrict__ shadow,
   const float row = srow[idx];
   const float* a = shadow + img * plane;
   const float* b = frame + img * plane;
-  // nearest, rounding half up; the float clamp equals clamping the
-  // saturated integer, and maps NaN to 0
-  const float cn = fminf(fmaxf(floorf(col + 0.5f), 0.0f), (float)(width - 1));
-  const float rn = fminf(fmaxf(floorf(row + 0.5f), 0.0f), (float)(height - 1));
-  out_shadow[idx] = a[(int)rn * width + (int)cn];
-  out_frame[idx] = mr_bilinear(b, col, row, height, width);
+  const MrTaps t = mr_bilinear_taps(col, row, height, width);
+  if (kBilinearA) {
+    out_shadow[idx] = mr_bilinear_apply(a, t, width);
+  } else {
+    // nearest, rounding half up; the float clamp equals clamping the
+    // saturated integer, and maps NaN to 0
+    const float cn =
+        fminf(fmaxf(floorf(col + 0.5f), 0.0f), (float)(width - 1));
+    const float rn =
+        fminf(fmaxf(floorf(row + 0.5f), 0.0f), (float)(height - 1));
+    out_shadow[idx] = a[(int)rn * width + (int)cn];
+  }
+  out_frame[idx] = mr_bilinear_apply(b, t, width);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -75,6 +99,57 @@ warp_bilinear_kernel(const float* __restrict__ image,
   const int c = pix - r * width;
   out[idx] = mr_bilinear(image + img * plane, (float)c + u[idx],
                          (float)r + v[idx], height, width);
+}
+
+// remap._cubic_weights: the polynomials in t of the XLA twin, a = -0.75
+__device__ __forceinline__ void cubic_weights(float t, float w[4]) {
+  const float a = -0.75f;
+  const float t2 = t * t;
+  const float t3 = t2 * t;
+  w[0] = a * ((t3 - 2.0f * t2) + t);
+  w[1] = ((a + 2.0f) * t3 - (a + 3.0f) * t2) + 1.0f;
+  w[2] = (-(a + 2.0f) * t3 + (2.0f * a + 3.0f) * t2) - a * t;
+  w[3] = a * (t2 - t3);
+}
+
+__global__ void __launch_bounds__(kThreads)
+warp_bicubic_kernel(const float* __restrict__ image,
+                    const float* __restrict__ u, const float* __restrict__ v,
+                    float* __restrict__ out, long long total, int height,
+                    int width) {
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= total) return;
+  const long long plane = (long long)height * width;
+  const long long img = idx / plane;
+  const int pix = (int)(idx - img * plane);
+  const int r = pix / width;
+  const int c = pix - r * width;
+  const float col = (float)c + u[idx];
+  const float row = (float)r + v[idx];
+  const float fc0 = floorf(col);
+  const float fr0 = floorf(row);
+  float wc[4], wr[4];
+  cubic_weights(col - fc0, wc);
+  cubic_weights(row - fr0, wr);
+  // the float clamp before the conversion keeps far-off (or NaN)
+  // coordinates in int range; every tap they reach is a border tap either
+  // way, as the twin's integer clamp gives
+  const int c0 = (int)fminf(fmaxf(fc0, -3.0f), (float)(width + 2));
+  const int r0 = (int)fminf(fmaxf(fr0, -3.0f), (float)(height + 2));
+  int cj[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) cj[j] = min(max(c0 + j - 1, 0), width - 1);
+  const float* src = image + img * plane;
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* line = src + min(max(r0 + i - 1, 0), height - 1) * width;
+    float row_acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) row_acc = row_acc + wc[j] * line[cj[j]];
+    acc = acc + wr[i] * row_acc;
+  }
+  out[idx] = acc;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -98,17 +173,26 @@ sample_bilinear_masked_kernel(const float* __restrict__ image,
 
 }  // namespace
 
-// shadow, frame, scol, srow, out_shadow, out_frame: (n, height, width)
+// shadow, frame, scol, srow, out_shadow, out_frame: (n, height, width);
+// bilinear_a != 0 samples the shadow bilinearly, else nearest
 MR_EXPORT int mr_sample_shadow_frame(const float* shadow, const float* frame,
                                      const float* scol, const float* srow,
                                      float* out_shadow, float* out_frame,
-                                     int n, int height, int width,
-                                     void* stream) {
+                                     int bilinear_a, int n, int height,
+                                     int width, void* stream) {
   const long long total = (long long)n * height * width;
   if (total == 0) return 0;
-  sample_shadow_frame_kernel<<<mr_blocks(total, kThreads), kThreads, 0,
-                               (cudaStream_t)stream>>>(
-      shadow, frame, scol, srow, out_shadow, out_frame, total, height, width);
+  const int blocks = mr_blocks(total, kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bilinear_a) {
+    sample_shadow_frame_kernel<true><<<blocks, kThreads, 0, s>>>(
+        shadow, frame, scol, srow, out_shadow, out_frame, total, height,
+        width);
+  } else {
+    sample_shadow_frame_kernel<false><<<blocks, kThreads, 0, s>>>(
+        shadow, frame, scol, srow, out_shadow, out_frame, total, height,
+        width);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -121,6 +205,18 @@ MR_EXPORT int mr_warp_bilinear(const float* image, const float* u,
   warp_bilinear_kernel<<<mr_blocks(total, kThreads), kThreads, 0,
                          (cudaStream_t)stream>>>(image, u, v, out, total,
                                                  height, width);
+  return (int)cudaGetLastError();
+}
+
+// image, u, v, out: (n, height, width)
+MR_EXPORT int mr_warp_bicubic(const float* image, const float* u,
+                              const float* v, float* out, int n, int height,
+                              int width, void* stream) {
+  const long long total = (long long)n * height * width;
+  if (total == 0) return 0;
+  warp_bicubic_kernel<<<mr_blocks(total, kThreads), kThreads, 0,
+                        (cudaStream_t)stream>>>(image, u, v, out, total,
+                                                height, width);
   return (int)cudaGetLastError();
 }
 

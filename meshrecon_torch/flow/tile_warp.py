@@ -1,19 +1,22 @@
-"""Gather kernels for resampling image stacks: K2, K3 and K3c wrappers.
+"""Gather kernels for resampling image stacks: K2, K3, K3b and K3c wrappers.
 
-Port of the three meshrecon/flow/tile_warp.py entry points on the default
-reconstruction's path. On a TPU those kernels fit a per-tile integer base
+Port of the meshrecon/flow/tile_warp.py entry points on the
+reconstruction's paths. On a TPU those kernels fit a per-tile integer base
 offset and enumerate bounded residual taps because gathers are slow there;
 their coordinate preparation, vertical stacking, guard bands, invalid-pixel
 rewrites and dead-tile sentinels are not ported. On Hopper a gather is
-cheap, so K2, K3 and K3c (``csrc/warp.cu``) are plain per-pixel gathers
-that compute exactly what the XLA twins compute, with no residual budget
-to clamp.
+cheap, so K2, K3, K3b and K3c (``csrc/warp.cu``) are plain per-pixel
+gathers that compute exactly what the XLA twins compute, with no residual
+budget to clamp.
 
-- :func:`tile_warp_sample2_batched` (K2): nearest sample of source A and
-  bilinear sample of source B at one coordinate field. Plain version:
+- :func:`tile_warp_sample2_batched` (K2): nearest (or, with
+  ``bilinear_a``, bilinear) sample of source A and bilinear sample of
+  source B at one coordinate field. Plain version:
   ``raster.fragment.nearest_sample`` / ``bilinear_sample``.
-- :func:`tile_warp_flow_batched` (K3, taps=2): bilinear warp of a stack by
-  a flow field. Plain version: ``flow.remap.bilinear_warp``.
+- :func:`tile_warp_flow_batched`: warp of a stack by a flow field, K3 with
+  taps=2 (bilinear; plain version ``flow.remap.bilinear_warp``) and K3b
+  with taps=4 (Keys bicubic; plain version ``flow.remap.flow_remap``).
+- :func:`tile_warp_bicubic`: K3b's absolute-coordinate form.
 - :func:`tile_warp_sample_batched` (K3c, the valid-mask form): bilinear
   sample of a stack at absolute coordinates, exactly 0.0 where the mask is
   false (the plane sweep's per-plane resample). Plain version:
@@ -33,17 +36,23 @@ K3 = Kernel("warp_bilinear", "mr_warp_bilinear",
 K3C = Kernel("sample_bilinear_masked", "mr_sample_bilinear_masked",
              "meshrecon_torch/csrc/warp.cu",
              "meshrecon/flow/tile_warp.py:97 (valid mask)")
+K3B = Kernel("warp_bicubic", "mr_warp_bicubic",
+             "meshrecon_torch/csrc/warp.cu",
+             "meshrecon/flow/tile_warp.py:97 (taps=4)")
 
 
-def tile_warp_sample2_batched(srcs_a, srcs_b, scols, srows):
+def tile_warp_sample2_batched(srcs_a, srcs_b, scols, srows,
+                              bilinear_a: bool = False):
     """Sample two (N, H, W) stacks at one coordinate field (N, H, W): A
-    nearest (rounding half up), B bilinear, both border-clamped.
+    nearest (rounding half up) or, with ``bilinear_a``, bilinear (the TPU
+    kernel's ``nearest_a=False``); B bilinear; all border-clamped.
     Returns (out_a, out_b), each (N, H, W) float32."""
     if not srcs_a.is_cuda:
         from meshrecon_torch.raster.fragment import (bilinear_sample,
                                                      nearest_sample)
 
-        return (nearest_sample(srcs_a, scols, srows),
+        sample_a = bilinear_sample if bilinear_a else nearest_sample
+        return (sample_a(srcs_a, scols, srows),
                 bilinear_sample(srcs_b, scols, srows))
     n, h, w = srcs_a.shape
     for t in (srcs_b, scols, srows):
@@ -53,17 +62,24 @@ def tile_warp_sample2_batched(srcs_a, srcs_b, scols, srows):
     out_b = torch.empty_like(srcs_b)
     check_cuda("tile_warp_sample2_batched", srcs_a, srcs_b, scols, srows,
                out_a, out_b)
-    K2.launch(srcs_a, srcs_b, scols, srows, out_a, out_b, n, h, w)
+    K2.launch(srcs_a, srcs_b, scols, srows, out_a, out_b,
+              1 if bilinear_a else 0, n, h, w)
     return out_a, out_b
 
 
-def tile_warp_flow_batched(images, u, v):
-    """Bilinear warp: out[..., r, c] = images(c + u, r + v), border-clamped.
+def tile_warp_flow_batched(images, u, v, taps: int = 2):
+    """Warp: out[..., r, c] = images(c + u, r + v), border-clamped;
+    bilinear (taps=2, K3) or Keys bicubic (taps=4, K3b).
     images, u, v: (..., H, W) float32 of one shape."""
+    if taps not in (2, 4):
+        raise ValueError(f"taps must be 2 or 4: {taps}")
     if not images.is_cuda:
-        from meshrecon_torch.flow.remap import bilinear_warp
+        from meshrecon_torch.flow.remap import bilinear_warp, flow_remap
 
-        return bilinear_warp(images, torch.stack([u, v], dim=-1))
+        flow = torch.stack([u, v], dim=-1)
+        if taps == 4:
+            return flow_remap(flow, images)
+        return bilinear_warp(images, flow)
     if u.shape != images.shape or v.shape != images.shape:
         raise ValueError(f"flow {tuple(u.shape)}/{tuple(v.shape)} != image "
                          f"{tuple(images.shape)}")
@@ -71,8 +87,21 @@ def tile_warp_flow_batched(images, u, v):
     n = images.numel() // (h * w)
     out = torch.empty_like(images)
     check_cuda("tile_warp_flow_batched", images, u, v, out)
-    K3.launch(images, u, v, out, n, h, w)
+    (K3B if taps == 4 else K3).launch(images, u, v, out, n, h, w)
     return out
+
+
+def tile_warp_bicubic(src, scol, srow):
+    """Keys bicubic (a = -0.75) sample of a (..., H, W) stack at absolute
+    coordinates (scol, srow) of its shape: K3b on the flow
+    ``(scol - col, srow - row)``. Plain version: ``remap.bicubic_sample``
+    (up to the rounding of that difference)."""
+    h, w = src.shape[-2:]
+    cols = torch.arange(w, dtype=torch.float32, device=src.device)
+    rows = torch.arange(h, dtype=torch.float32, device=src.device)[:, None]
+    return tile_warp_flow_batched(src.contiguous(),
+                                  (scol - cols).contiguous(),
+                                  (srow - rows).contiguous(), taps=4)
 
 
 def sample_bilinear_masked_plain(srcs, scols, srows, valid):

@@ -3,8 +3,10 @@
 Port of meshrecon/flow/variational.py. At each pyramid level (coarse to
 fine): warp ``next`` by the upsampled flow (bilinear, K3), linearize
 around that flow, and relax the Horn-Schunck system with Chebyshev- or
-Jacobi-weighted sweeps (K4). :func:`_hs_sweeps` and :func:`_hs_sweeps_cheb`
-are the plain versions of K4.
+Jacobi-weighted sweeps (K4), or solve it by multigrid cycles
+(``solver="mg"``, ``flow/multigrid.py``, torch ops).
+:func:`_hs_sweeps` and :func:`_hs_sweeps_cheb` are the plain versions of
+K4.
 
 On a CUDA tensor every level goes through the kernels; the JAX package's
 TPU size floors for its Pallas paths are not ported.
@@ -103,24 +105,29 @@ def _hs_sweeps_cheb(prev, warped, u0, v0, alpha2, iters, rho: float = 0.98):
 
 
 def _hs_level(prev, next_, u0, v0, alpha2, iters, solver: str = "cheb",
-              rho: float = 0.98):
+              rho: float = 0.98, cycles: int = 2):
     """One warp iteration: warp ``next_`` by (u0, v0) (K3), linearize
-    there and relax the total flow (K4). Returns (u, v, warped)."""
-    if solver not in ("cheb", "jacobi"):
-        raise NotImplementedError(
-            f"flow solver {solver!r} is not ported yet (ROADMAP Queue A, "
-            "A11: multigrid solver)")
+    there and relax the total flow (K4), or solve it by ``cycles``
+    multigrid cycles (solver "mg"). Returns (u, v, warped)."""
+    if solver not in ("cheb", "jacobi", "mg"):
+        raise ValueError(f"solver must be cheb|jacobi|mg: {solver!r}")
     warped = tile_warp_flow_batched(next_.contiguous(), u0.contiguous(),
                                     v0.contiguous())
-    u, v = hs_level_fused(prev, warped, u0, v0, alpha2, iters=iters,
-                          solver=solver, rho=rho)
+    if solver == "mg":
+        from meshrecon_torch.flow.multigrid import hs_solve_mg
+
+        u, v = hs_solve_mg(prev, warped, u0, v0, alpha2, cycles=cycles)
+    else:
+        u, v = hs_level_fused(prev, warped, u0, v0, alpha2, iters=iters,
+                              solver=solver, rho=rho)
     return u, v, warped
 
 
 def variational_flow(prev, next_, levels: int = 6, iters: int | None = None,
                      warps: int = 2, alpha: float = 12.0, min_size: int = 12,
                      solver: str = "cheb", want_residual: bool = False,
-                     rho: float = 0.98, fine_warps: int = 1):
+                     rho: float = 0.98, fine_warps: int = 1,
+                     cycles: int = 2):
     """Dense flow prev -> next: next(x + flow(x)) ~= prev(x).
 
     prev: (..., H, W) grayscale float (0..255 scale), broadcasting against
@@ -133,7 +140,8 @@ def variational_flow(prev, next_, levels: int = 6, iters: int | None = None,
     The finest level runs ``fine_warps`` warps (default one); coarser
     levels run ``warps``.
     iters defaults to 14 Chebyshev sweeps (schedule parameter ``rho``) or
-    60 Jacobi sweeps.
+    60 Jacobi sweeps; solver "mg" runs ``cycles`` multigrid cycles per
+    warp instead and ignores ``iters``.
     """
     if iters is None:
         iters = 14 if solver == "cheb" else 60
@@ -161,7 +169,7 @@ def variational_flow(prev, next_, levels: int = 6, iters: int | None = None,
         for _ in range(n_warps):
             u_lin, v_lin = u, v
             u, v, warped = _hs_level(a, b, u, v, alpha2, iters,
-                                     solver=solver, rho=rho)
+                                     solver=solver, rho=rho, cycles=cycles)
     flow = torch.stack([u, v], dim=-1)
     if not want_residual:
         return flow

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from meshrecon_torch.io.tracks import TrackFile
+from meshrecon_torch.pipeline.config import resolve_device
 from meshrecon_torch.raster.rasterizer import pixel_grid
 
 
@@ -161,12 +162,13 @@ def fit_plane(bundles: np.ndarray):
 
 def synthetic_frames(track: TrackFile, width: int, height: int,
                      mode: str = "sphere", seed: int = 0,
-                     device="cpu") -> torch.Tensor:
+                     device="cuda") -> torch.Tensor:
     """Render (F, H, W) float32 grayscale fixture frames on ``device``.
 
     Modes: "sphere" (best-fit sphere), "plane" (best-fit bounded plane),
     "auto" (plane when the cloud is near-planar).
     """
+    device = resolve_device(device)
     cameras = torch.from_numpy(np.asarray(track.cameras,
                                           np.float32)).to(device)
     center, radius = fit_sphere(track.bundles)

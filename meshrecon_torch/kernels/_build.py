@@ -32,7 +32,7 @@ BUILD_DIR = _PKG.parent / "build" / "meshrecon_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     # a*b+c stays two rounded operations, as in torch's eager ops (see
     # csrc/common.cuh)
     "-fmad=false",
@@ -43,10 +43,12 @@ NVCC_FLAGS = (
 # F = float. The stream is always the last argument.
 _SIGNATURES = {
     "mr_raster_tiles": "PPPPPPPPPP" + "IIIIIII" + "P",
-    "mr_sample_shadow_frame": "PPPPPP" + "III" + "P",
+    "mr_sample_shadow_frame": "PPPPPP" + "IIII" + "P",
     "mr_warp_bilinear": "PPPP" + "III" + "P",
+    "mr_warp_bicubic": "PPPP" + "III" + "P",
     "mr_sample_bilinear_masked": "PPPPP" + "III" + "P",
     "mr_hs_sweep": "PPPP" + "PPPP" + "PPPPPP" + "FFF" + "IIII" + "P",
+    "mr_hs_jacobi_fields": "PPPP" + "PPPP" + "F" + "IIII" + "P",
 }
 _CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
 
@@ -76,6 +78,28 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel and return their joined output; the
+    first that fails raises, after the others are stopped."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log = ""
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return log
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> Library:
     """Build (if needed) and load the kernel library; cached per process."""
@@ -89,15 +113,17 @@ def library() -> Library:
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources() if s.suffix == ".cu")]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        # one nvcc per source, all started together, then one link
+        srcs = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(srcs, objs)])
+        log += _run_all([[_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-shared", "-o", str(tmp), *map(str, objs)]])
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, path)  # atomic: a concurrent build never sees half
     cdll = ctypes.CDLL(str(path))
     for name, kinds in _SIGNATURES.items():

@@ -22,6 +22,7 @@ import torch
 
 from meshrecon_torch.io.obj import Mesh
 from meshrecon_torch.meshing import native
+from meshrecon_torch.pipeline.config import resolve_device
 
 
 def _indicator_grid(points3, normals, valid, lo, scale, grid: int = 128,
@@ -100,13 +101,14 @@ def robust_grid_frame(pts3, grid: int, margin: float = 0.15):
 
 
 def poisson_surface(points, normals, grid: int = 128, sigma: float = 1.5,
-                    margin: float = 0.15, device="cpu") -> Mesh:
+                    margin: float = 0.15, device="cuda") -> Mesh:
     """Closed surface mesh from confidence-weighted oriented points.
 
     points: (N, 4) homogeneous or (N, 3); normals: (N, 3). The indicator is
     solved on ``device``. Returns a Mesh with homogeneous vertices (w = 1)
     and outward-oriented faces (poissonSurface, cgal_poisson.cpp:47).
     """
+    device = resolve_device(device)
     pts = np.asarray(points, dtype=np.float64)
     if pts.shape[1] == 4:
         pts = pts[:, :3] / pts[:, 3:4]

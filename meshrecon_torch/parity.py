@@ -72,11 +72,14 @@ def slice_agreement(ours: dict, ref: dict) -> dict:
     }
 
 
-def check_slice(ours: dict, ref: dict) -> dict:
-    """slice_agreement, raising AssertionError on any bound it misses."""
+def check_slice(ours: dict, ref: dict, bounds: dict | None = None) -> dict:
+    """slice_agreement, raising AssertionError on any bound it misses;
+    ``bounds`` replaces some of SLICE_BOUNDS' values (name -> bound)."""
     metrics = slice_agreement(ours, ref)
+    limits = {k: (kind, (bounds or {}).get(k, bound))
+              for k, (kind, bound) in SLICE_BOUNDS.items()}
     missed = [f"{k} {metrics[k]:.3e} ({kind} {bound})"
-              for k, (kind, bound) in SLICE_BOUNDS.items()
+              for k, (kind, bound) in limits.items()
               if not (metrics[k] >= bound if kind == "min"
                       else metrics[k] <= bound)]
     if missed:

@@ -8,7 +8,10 @@ layout knobs of the JAX package (``--raster-tile-h/w``,
 ``--hs-fused-min-px``, ``--warp-narrow``, ``--warp-narrow-cols``,
 ``--warp-guard-cols``) have no counterpart here and are not accepted. A flag
 whose path is not ported yet raises NotImplementedError naming its ROADMAP
-item; no flag is ignored.
+item; no flag is ignored. The flow options that the JAX package sets as
+module globals (``apply_kernel_knobs``: ``--variance-mode``,
+``--variance-taps``, ``--shadow-sample``) are fields of :class:`Config`
+here, handed to the updates as arguments.
 """
 
 from __future__ import annotations
@@ -39,7 +42,13 @@ class Config:
     # sweep on iteration 1, flow refinement after)
     depth_mode: str = "flow"
     sampling: str = "taylor"  # flow-displaced depth sampling: taylor | exact
-    flow_solver: str = "cheb"  # cheb | jacobi
+    flow_solver: str = "cheb"  # cheb | jacobi | mg
+    use_farneback: bool = False  # -f: Farneback flow instead of variational
+    # the flow variance's re-warp: taylor (first order) | rewarp (the
+    # reference's remap-then-compare), with 4 (bicubic) or 2 (bilinear) taps
+    variance_mode: str = "taylor"
+    variance_taps: int = 4
+    shadow_sample: str = "nearest"  # shadow map sampler: nearest | bilinear
     sweep_depths: int = 64
     sweep_passes: int = 1
     poisson_grid: int = 128
@@ -160,15 +169,6 @@ def _unported(args) -> list[str]:
     """The flags given whose path the port does not have yet, each with
     its ROADMAP item."""
     missing = []
-    if args.farneback:
-        missing.append("-f/--farneback (ROADMAP Queue A, A10)")
-    if args.flow_solver == "mg":
-        missing.append("--flow-solver mg (ROADMAP Queue A, A11)")
-    if args.variance_mode == "rewarp" or args.variance_taps:
-        missing.append("--variance-mode rewarp / --variance-taps "
-                       "(ROADMAP Queue A, A5c; kernel K3b)")
-    if args.shadow_sample == "bilinear":
-        missing.append("--shadow-sample bilinear (ROADMAP Queue A, A5d)")
     if args.estimate_exposure:
         missing.append("-e/--estimate-exposure (ROADMAP Queue A, A13)")
     if not args.synthetic:
@@ -184,14 +184,15 @@ def _unported(args) -> list[str]:
     return missing
 
 
-def resolve_device(name: str) -> torch.device:
-    """The torch device for ``--device``; a CUDA device that is missing
-    raises rather than running on the CPU."""
+def resolve_device(name) -> torch.device:
+    """The torch device for ``--device`` or an entry point's ``device``
+    argument; a CUDA device that is missing raises rather than running on
+    the CPU."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"--device {name}: CUDA is not available (pass --device cpu to "
-            "run the plain versions on the CPU)")
+            f"device {str(name)!r}: CUDA is not available (pass --device "
+            "cpu, or device='cpu', to run the plain versions on the CPU)")
     return device
 
 
@@ -244,6 +245,11 @@ def _config_for_file(args, in_file: str, out_file: str) -> Config:
         depth_mode=args.depth_mode,
         sampling=args.sampling,
         flow_solver=args.flow_solver,
+        use_farneback=args.farneback,
+        # an empty value is the JAX package's default
+        variance_mode=args.variance_mode or "taylor",
+        variance_taps=args.variance_taps or 4,
+        shadow_sample=args.shadow_sample or "nearest",
         sweep_depths=args.sweep_depths,
         sweep_passes=args.sweep_passes,
         poisson_grid=args.poisson_grid,

@@ -2,18 +2,24 @@
 reconstruction iteration (recon.cpp:65-119).
 
 Port of meshrecon/pipeline/fused.py: fused_main_update_batched and
-fused_main_update (flow path, taylor variance), and the plane-sweep update
-of the hybrid default's first iteration, fused_sweep_update_batched with
+fused_main_update (the flow path), and the plane-sweep update of the
+hybrid default's first iteration, fused_sweep_update_batched with
 splat_visibility. The flow update's stages, with the kernels that carry
 them on a CUDA device:
 
 1. depth renders of all B*(K+1) cameras in one launch (K1);
-2. projective texturing of the B*K side frames (K2), then the sequential
-   background-mix chain over the sides;
+2. projective texturing of the B*K side frames (K2, its shadow sampler
+   nearest or bilinear), then the sequential background-mix chain over
+   the sides;
 3. one batched flow solve over all B*K (main, side) pairs: 2 pyramid
-   levels, 1 warp per level (K3), 14 Chebyshev sweeps (K4), and the
-   first-order ("taylor") re-warp for the variance;
-4. pyramid-L1 variance, Gauss-Newton triangulation, normals (torch ops).
+   levels, 1 warp per level (K3), 14 Chebyshev sweeps (K4), 60 Jacobi
+   sweeps (K4) or 2 multigrid cycles (torch ops); or Farneback flow
+   (``use_farneback``, torch ops and K3);
+4. the variance input: the first-order ("taylor") re-warp through the
+   solver's last linearization, or the remap-then-compare re-warp of the
+   reference (``variance="rewarp"``, always with Farneback): bicubic K3b
+   (``variance_taps`` 4) or bilinear K3 (2), as the TPU path does;
+5. pyramid-L1 variance, Gauss-Newton triangulation, normals (torch ops).
 
 The sweep update shares stages 1-2 (K1, K2 for the visibility masks), then
 sweeps 64 depth planes (K3c per plane, ``depth/plane_sweep.py``).
@@ -28,7 +34,10 @@ from meshrecon_torch import BACKGROUND_DEPTH
 from meshrecon_torch.depth.normals import estimate_normals_batched
 from meshrecon_torch.depth.plane_sweep import plane_sweep_depth_batched
 from meshrecon_torch.depth.triangulate import triangulate_pixels_batched
+from meshrecon_torch.flow.api import farneback_params
+from meshrecon_torch.flow.farneback import farneback_flow
 from meshrecon_torch.flow.pyramid import compare
+from meshrecon_torch.flow.tile_warp import tile_warp_flow_batched
 from meshrecon_torch.flow.variational import variational_flow
 from meshrecon_torch.raster.binned import render_depth_binned
 from meshrecon_torch.raster.fragment import (mix_background,
@@ -42,10 +51,12 @@ def fused_main_update_batched(soup, soup_valid, cam_mains, frames_main,
                               use_farneback: bool = False,
                               sampling: str = "taylor",
                               flow_solver: str = "cheb",
-                              variance: str = "taylor", levels: int = 2,
-                              warps: int = 1, iters: int | None = None,
-                              alpha: float = 12.0, rho: float = 0.98,
-                              fine_warps: int = 1):
+                              variance: str = "taylor",
+                              variance_taps: int = 4,
+                              shadow_sample: str = "nearest",
+                              levels: int = 2, warps: int = 1,
+                              iters: int | None = None, alpha: float = 12.0,
+                              rho: float = 0.98, fine_warps: int = 1):
     """Full dense update for B main cameras x K (padded) sides each.
 
     soup: (T, 3, 3) world triangles + (T,) validity, shared by the batch;
@@ -53,16 +64,18 @@ def fused_main_update_batched(soup, soup_valid, cam_mains, frames_main,
     side_frames: (B, K, H, W); side_valid: (B, K); centers: (B, C, 3);
     centers_valid: (B, C); n_side: (B,). All tensors on one device.
 
+    flow_solver: "cheb", "jacobi" or "mg"; use_farneback replaces the
+    variational solve. variance: "taylor" or "rewarp" (Farneback always
+    re-warps), variance_taps 4 (bicubic) or 2 (bilinear); shadow_sample:
+    "nearest" or "bilinear".
+
     Returns dict(point4, normals, pdf, valid, depth) with leading B, and
     ``gn_sweeps`` (the Gauss-Newton sweep count, one host sync each).
     """
-    if use_farneback:
-        raise NotImplementedError(
-            "Farneback flow is not ported yet (ROADMAP Queue A, A10)")
-    if variance != "taylor":
-        raise NotImplementedError(
-            f"variance={variance!r} needs the bicubic taps=4 warp, not "
-            "ported yet (ROADMAP Queue B, K3b)")
+    if variance not in ("taylor", "rewarp"):
+        raise ValueError(f"variance must be taylor|rewarp: {variance!r}")
+    if variance_taps not in (2, 4):
+        raise ValueError(f"variance_taps must be 2|4: {variance_taps}")
     frames_main = frames_main.to(torch.float32)
     side_cams = side_cams.to(torch.float32)
     side_frames = side_frames.to(torch.float32)
@@ -80,7 +93,8 @@ def fused_main_update_batched(soup, soup_valid, cam_mains, frames_main,
     # 2: projective texturing of every side at once, then the sequential
     # mix chain (each side's mix sees the previous side's masked depth)
     intens, masks = projected_image_batched(cam_mains, depth0, side_frames,
-                                            side_cams, all_depths[:, 1:])
+                                            side_cams, all_depths[:, 1:],
+                                            shadow_sample=shadow_sample)
     depth = depth0
     mixed_list = []
     for i in range(k):
@@ -92,14 +106,28 @@ def fused_main_update_batched(soup, soup_valid, cam_mains, frames_main,
     depth_final = depth
     mixed_all = torch.stack(mixed_list, dim=1)  # (B, K, H, W)
 
-    # 3: one batched flow solve; the taylor re-warp feeds the variance
-    flows2, rewarped = variational_flow(
-        frames_main[:, None], mixed_all, levels=levels, iters=iters,
-        warps=warps, alpha=alpha, solver=flow_solver, want_residual=True,
-        rho=rho, fine_warps=fine_warps)
+    # 3: one batched flow solve over every (main, side) pair
+    rewarped = None
+    if use_farneback:
+        flows2 = farneback_flow(frames_main[:, None], mixed_all,
+                                **farneback_params(height, width))
+    else:
+        flows2 = variational_flow(
+            frames_main[:, None], mixed_all, levels=levels, iters=iters,
+            warps=warps, alpha=alpha, solver=flow_solver,
+            want_residual=variance == "taylor", rho=rho,
+            fine_warps=fine_warps)
+        if variance == "taylor":
+            flows2, rewarped = flows2
+
+    # 4: the variance's re-warp: taylor, or the remap-then-compare gather
+    if rewarped is None:
+        rewarped = tile_warp_flow_batched(
+            mixed_all.contiguous(), flows2[..., 0].contiguous(),
+            flows2[..., 1].contiguous(), taps=variance_taps)
     var = compare(frames_main[:, None], rewarped)  # (B, K, H, W)
 
-    # 4: triangulation and normals
+    # 5: triangulation and normals
     out = triangulate_pixels_batched(flows2[..., 0], flows2[..., 1], var,
                                      cam_mains, side_cams, side_valid,
                                      depth_final, sampling=sampling)
@@ -138,12 +166,18 @@ class FusedMainUpdate(nn.Module):
     ``forward`` takes the ten update inputs (see
     :func:`fused_main_update_batched`) and returns its output dict; the
     last call's Gauss-Newton sweep count is kept in ``last_gn_sweeps``.
+
+    ``iters`` None means the solver's default: 14 Chebyshev or 60 Jacobi
+    sweeps (the multigrid solver runs cycles and ignores it).
     """
 
     def __init__(self, height: int, width: int, levels: int = 2,
-                 warps: int = 1, iters: int = 14, alpha: float = 12.0,
-                 rho: float = 0.98, sampling: str = "taylor",
-                 flow_solver: str = "cheb", fine_warps: int = 1):
+                 warps: int = 1, iters: int | None = None,
+                 alpha: float = 12.0, rho: float = 0.98,
+                 sampling: str = "taylor", flow_solver: str = "cheb",
+                 fine_warps: int = 1, use_farneback: bool = False,
+                 variance: str = "taylor", variance_taps: int = 4,
+                 shadow_sample: str = "nearest"):
         super().__init__()
         self.height = height
         self.width = width
@@ -155,6 +189,10 @@ class FusedMainUpdate(nn.Module):
         self.sampling = sampling
         self.flow_solver = flow_solver
         self.fine_warps = fine_warps
+        self.use_farneback = use_farneback
+        self.variance = variance
+        self.variance_taps = variance_taps
+        self.shadow_sample = shadow_sample
         self.last_gn_sweeps = 0
 
     def forward(self, soup, soup_valid, cam_mains, frames_main, side_cams,
@@ -162,9 +200,12 @@ class FusedMainUpdate(nn.Module):
         out = fused_main_update_batched(
             soup, soup_valid, cam_mains, frames_main, side_cams, side_frames,
             side_valid, centers, centers_valid, n_side, self.height,
-            self.width, sampling=self.sampling, flow_solver=self.flow_solver,
-            levels=self.levels, warps=self.warps, iters=self.iters,
-            alpha=self.alpha, rho=self.rho, fine_warps=self.fine_warps)
+            self.width, use_farneback=self.use_farneback,
+            sampling=self.sampling, flow_solver=self.flow_solver,
+            variance=self.variance, variance_taps=self.variance_taps,
+            shadow_sample=self.shadow_sample, levels=self.levels,
+            warps=self.warps, iters=self.iters, alpha=self.alpha,
+            rho=self.rho, fine_warps=self.fine_warps)
         self.last_gn_sweeps = out.pop("gn_sweeps")
         return out
 
@@ -229,13 +270,15 @@ def fused_sweep_update_batched(soup, soup_valid, cam_mains, frames_main,
                                side_cams, side_frames, side_valid, centers,
                                centers_valid, n_side, height: int,
                                width: int, num_depths: int = 64,
-                               passes: int = 1):
+                               passes: int = 1,
+                               shadow_sample: str = "nearest"):
     """Plane-sweep counterpart of :func:`fused_main_update_batched` (same
     ten inputs): all B*(K+1) depth renders (K1), the per-side shadow-mapped
     visibility masks (K2), each main camera's z range from its rendered
     depth, the plane sweep (K3c), back-projection and normals. With
     ``passes`` > 1, each further sweep takes its side visibility from the
-    previous sweep's depth map (:func:`splat_visibility`).
+    previous sweep's depth map (:func:`splat_visibility`). shadow_sample
+    is the visibility masks' shadow sampler, "nearest" or "bilinear".
 
     Returns dict(point4, normals, pdf, valid, depth) with leading B; depth
     is the main camera's rendered depth.
@@ -255,7 +298,8 @@ def fused_sweep_update_batched(soup, soup_valid, cam_mains, frames_main,
 
     # visibility of the current surface estimate: the sweep's vote weights
     _, masks = projected_image_batched(cam_mains, depth0, side_frames,
-                                       side_cams, all_depths[:, 1:])
+                                       side_cams, all_depths[:, 1:],
+                                       shadow_sample=shadow_sample)
 
     # per-camera sweep range from the rendered depth span, widened by 10%
     dvalid = depth0 < BACKGROUND_DEPTH
@@ -310,16 +354,18 @@ class FusedSweepUpdate(nn.Module):
     :func:`fused_sweep_update_batched`."""
 
     def __init__(self, height: int, width: int, num_depths: int = 64,
-                 passes: int = 1):
+                 passes: int = 1, shadow_sample: str = "nearest"):
         super().__init__()
         self.height = height
         self.width = width
         self.num_depths = num_depths
         self.passes = passes
+        self.shadow_sample = shadow_sample
 
     def forward(self, soup, soup_valid, cam_mains, frames_main, side_cams,
                 side_frames, side_valid, centers, centers_valid, n_side):
         return fused_sweep_update_batched(
             soup, soup_valid, cam_mains, frames_main, side_cams, side_frames,
             side_valid, centers, centers_valid, n_side, self.height,
-            self.width, num_depths=self.num_depths, passes=self.passes)
+            self.width, num_depths=self.num_depths, passes=self.passes,
+            shadow_sample=self.shadow_sample)

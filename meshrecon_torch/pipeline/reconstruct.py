@@ -63,13 +63,17 @@ def main_update(config) -> FusedMainUpdate:
         config.height, config.width, levels=config.flow_levels or 2,
         warps=config.flow_warps or 1, iters=config.flow_iters or None,
         sampling=config.sampling, flow_solver=config.flow_solver,
-        fine_warps=config.flow_fine_warps or 1)
+        fine_warps=config.flow_fine_warps or 1,
+        use_farneback=config.use_farneback, variance=config.variance_mode,
+        variance_taps=config.variance_taps,
+        shadow_sample=config.shadow_sample)
 
 
 def sweep_update(config) -> FusedSweepUpdate:
     return FusedSweepUpdate(config.height, config.width,
                             num_depths=config.sweep_depths,
-                            passes=config.sweep_passes)
+                            passes=config.sweep_passes,
+                            shadow_sample=config.shadow_sample)
 
 
 def _centers3(config, fa: int, sides) -> np.ndarray:

@@ -26,6 +26,7 @@ import torch
 from scipy.spatial import cKDTree
 
 from meshrecon_torch.meshing import native
+from meshrecon_torch.pipeline.config import resolve_device
 
 DENSITY_LIMIT = 0.7  # heuristic.cpp:139
 DENSITY_CLAMP = 2.0  # heuristic.cpp:128-129
@@ -110,8 +111,9 @@ def _power_iteration(ei, ej, w, n: int, max_iters: int = 200):
     return density, score
 
 
-def density_scores(points3: np.ndarray, radius_sq: float, device="cpu"):
+def density_scores(points3: np.ndarray, radius_sq: float, device="cuda"):
     """Neighbour graph + converged density and raw scores (numpy)."""
+    device = resolve_device(device)
     n = len(points3)
     ei, ej, w = build_half_edges(points3, radius_sq)
     density, score = _power_iteration(
@@ -121,13 +123,14 @@ def density_scores(points3: np.ndarray, radius_sq: float, device="cpu"):
 
 
 def filter_points(points4: np.ndarray, normals: np.ndarray, radius_sq: float,
-                  device="cpu"):
+                  device="cuda"):
     """Filter a point cloud; returns (points4_kept, normals_kept, kept_idx).
 
     radius_sq: the squared-distance radius (alpha/4 with the CGAL-convention
     alpha, heuristic.cpp:63). ``device`` runs the density iteration of
     clouds of up to 5,000 points.
     """
+    device = resolve_device(device)
     points4 = np.asarray(points4, np.float32)
     normals = np.asarray(normals, np.float32)
     n = len(points4)

@@ -7,7 +7,11 @@ shadow map (+0.01 NDC bias), sample the side frame bilinearly.
 
 :func:`nearest_sample` and :func:`bilinear_sample` are the plain version of
 K2 (``flow/tile_warp.py::tile_warp_sample2_batched``), which
-:func:`projected_image_batched` calls.
+:func:`projected_image_batched` calls. The shadow map is sampled nearest
+(GL_NEAREST, shader.frag:17-18) or, with ``shadow_sample="bilinear"``
+(``--shadow-sample bilinear``), bilinearly at the frame sample's
+coordinates: the TPU kernel's ``nearest_a=False``
+(meshrecon/raster/fragment.py:34-42), on both devices.
 """
 
 from __future__ import annotations
@@ -77,13 +81,17 @@ def nearest_sample(image, col, row):
 
 
 def projected_image_batched(cam_mains, depth_mains, frames, projectors,
-                            depth_sides):
+                            depth_sides, shadow_sample: str = "nearest"):
     """B main cameras x K sides of projective texturing in one pass.
 
     cam_mains: (B, 4, 4); depth_mains: (B, H, W); frames: (B, K, H, W);
-    projectors: (B, K, 4, 4); depth_sides: (B, K, H, W).
+    projectors: (B, K, 4, 4); depth_sides: (B, K, H, W); shadow_sample:
+    "nearest" or "bilinear", the shadow map's sampler.
     Returns (intensity (B, K, H, W) float32, mask (B, K, H, W) bool).
     """
+    if shadow_sample not in ("nearest", "bilinear"):
+        raise ValueError(f"shadow_sample must be nearest|bilinear: "
+                         f"{shadow_sample!r}")
     b, k, h, w = frames.shape
     depth_mains = depth_mains.to(torch.float32)
     frames = frames.to(torch.float32)
@@ -116,7 +124,8 @@ def projected_image_batched(cam_mains, depth_mains, frames, projectors,
     bk = b * k
     shadow_z, intensity = tile_warp_sample2_batched(
         shadow.reshape(bk, h, w), frames.reshape(bk, h, w),
-        scol.reshape(bk, h, w), srow.reshape(bk, h, w))
+        scol.reshape(bk, h, w), srow.reshape(bk, h, w),
+        bilinear_a=shadow_sample == "bilinear")
     shadow_z = shadow_z.reshape(b, k, h, w)
     intensity = intensity.reshape(b, k, h, w)
     visible = shadow_z + 0.01 > sz

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from meshrecon_torch.pipeline.config import resolve_device
+
 _W_EPS = 1e-6  # near clip: keep fragments with clip w >= _W_EPS
 
 # Shared-edge tie slop in NDC units, baked into the affine C coefficients
@@ -339,10 +341,10 @@ class Renderer:
     ``render_depth_binned`` (K1 on a CUDA device, the plain render on the
     CPU) and projective texturing through K2."""
 
-    def __init__(self, width: int, height: int, device="cpu"):
+    def __init__(self, width: int, height: int, device="cuda"):
         self.width = int(width)
         self.height = int(height)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._soup = None
         self._valid = None
 

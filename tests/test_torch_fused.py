@@ -7,6 +7,13 @@ whose docstring gives each bound's reason. Measured here against JAX
 (whose CPU backend contracts multiply-adds into FMAs): depth and valid
 agree everywhere, point4 to 6.5e-5 of its length, pdf within 1e-3 on
 99.1% of pixels and 0.12 in log, normals' axis to 2.3e-4 with no flip.
+
+The flow options against the JAX update on the same inputs: the same
+bounds, except pdf within 1e-3 where the flow or the variance is more
+sensitive to last bits on these noise frames. The bicubic re-warp's
+variance on noise gives pdf within 1e-3 on 97.3% of pixels (bound 0.95);
+Farneback's 2x2 solves amplify XLA's FMA contraction to 4.7e-4 px of flow
+(measured at 48x64), pdf within 1e-3 on 89.1% of pixels (bound 0.85).
 """
 
 import subprocess
@@ -63,13 +70,53 @@ def test_single_camera_form_and_module_agree(slice_outputs):
         np.testing.assert_array_equal(out[key].numpy(), ours[key])
 
 
-@pytest.mark.parametrize("kwargs", [{"use_farneback": True},
-                                    {"variance": "rewarp"},
-                                    {"flow_solver": "mg"}])
+@pytest.mark.parametrize("kwargs,bounds", [
+    ({"variance": "rewarp"}, {"pdf_within_1e-3": 0.95}),
+    ({"use_farneback": True}, {"pdf_within_1e-3": 0.85}),
+    ({"flow_solver": "mg"}, {})], ids=["rewarp", "farneback", "mg"])
+def test_options_match_jax(kwargs, bounds):
+    """The flow update's options against the JAX update (its CPU path:
+    bicubic flow_remap for the re-warp)."""
+    args = g._fused_problem(2, 2, H, W, seed=3)
+    jkw = dict(variance="taylor", use_farneback=False, flow_solver="cheb")
+    jkw.update(kwargs)
+    ref = {k: np.asarray(v) for k, v in j_fused(
+        *args, height=H, width=W, use_pallas=False, **jkw).items()}
+    ours = state.to_numpy(fused_main_update_batched(
+        *state.from_numpy(args, "cpu"), H, W, **kwargs))
+    assert ref["valid"].mean() > 0.05
+    parity.check_slice(ours, ref, bounds)
+    for key in ("point4", "normals", "pdf"):
+        assert np.isfinite(ours[key][ours["valid"]]).all(), key
+
+
+@pytest.mark.parametrize("kwargs", [{"variance": "exact"},
+                                    {"variance_taps": 3},
+                                    {"shadow_sample": "linear"}])
 def test_unported_options_raise(kwargs):
+    """Every option of the JAX update is ported; a value outside them
+    raises."""
     t = state.from_numpy(problems.fused_problem(1, 1, 16, 16), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError):
         fused_main_update_batched(*t, 16, 16, **kwargs)
+
+
+def test_module_iters_follow_the_solver():
+    """FusedMainUpdate(iters=None) runs the solver's default sweeps: 60
+    for Jacobi, as fused_main_update_batched(flow_solver="jacobi") and the
+    JAX package (variational.py:420)."""
+    t = state.from_numpy(problems.fused_problem(1, 2, 24, 32, seed=4),
+                         "cpu")
+    module = FusedMainUpdate(24, 32, flow_solver="jacobi")
+    assert module.iters is None
+    out = module(*t)
+    ref = fused_main_update_batched(*t, 24, 32, flow_solver="jacobi",
+                                    iters=60)
+    for key in ("point4", "normals", "pdf", "valid", "depth"):
+        assert torch.equal(out[key], ref[key]), key
+    fewer = fused_main_update_batched(*t, 24, 32, flow_solver="jacobi",
+                                      iters=14)
+    assert not torch.equal(out["pdf"], fewer["pdf"])
 
 
 def test_problems_reproduce_graft_entry():
@@ -99,6 +146,11 @@ def test_state_round_trip():
 
 def test_port_never_imports_jax():
     modules = ("meshrecon_torch.pipeline.fused", "meshrecon_torch.state",
+               "meshrecon_torch.flow.api", "meshrecon_torch.flow.farneback",
+               "meshrecon_torch.flow.multigrid",
+               "meshrecon_torch.flow.jacobi", "meshrecon_torch.flow.remap",
+               "meshrecon_torch.flow.tile_warp",
+               "meshrecon_torch.raster.fragment",
                "meshrecon_torch.problems", "meshrecon_torch.cli",
                "meshrecon_torch.pipeline.reconstruct",
                "meshrecon_torch.pipeline.config",

@@ -34,6 +34,10 @@ from meshrecon_torch.state import pack_soup
 torch.set_num_threads(1)
 
 
+def _cpu_renderer(width, height):
+    return Renderer(width, height, device="cpu")
+
+
 @pytest.fixture(scope="module")
 def koule():
     track = load_tracks("tracks/koule-tr.yaml")
@@ -91,7 +95,7 @@ def test_choose_cameras_equals_jax(koule, seed):
     track, _ = koule
     hint, jhint = _pair(koule, seed)
     picks = []
-    for h, make_renderer, mesh_cls in ((hint, Renderer, Mesh),
+    for h, make_renderer, mesh_cls in ((hint, _cpu_renderer, Mesh),
                                        (jhint, JRenderer, JMesh)):
         assert h.not_happy(track.bundles)
         mesh = h.tessellate(track.bundles,
@@ -116,7 +120,7 @@ def test_repairs_and_cap_equal_jax(koule):
               max_sides=2)
     hint, jhint = _pair(koule, 5, **kw)
     out = []
-    for h, make_renderer in ((hint, Renderer), (jhint, JRenderer)):
+    for h, make_renderer in ((hint, _cpu_renderer), (jhint, JRenderer)):
         h.not_happy(track.bundles)
         mesh = h.tessellate(track.bundles, np.zeros((len(track.bundles), 3)))
         r = make_renderer(80, 60)

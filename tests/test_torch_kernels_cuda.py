@@ -12,8 +12,12 @@ bitwise (an index pick); K2's bilinear sample and K3 1e-4 on a 0..255
 scale (the library is built with -fmad=false, so the operation order is
 the plain one); K3c the same 1e-4 on valid pixels and exactly 0 on the
 others; K4 1e-4 px (the kernel folds the data term into cc and 1/denom as
-pallas_jacobi.py does, the plain version does not). The sweep update and
-the reconstruction on the card against their plain runs on the CPU.
+pallas_jacobi.py does, the plain version does not); K3b 1e-4 on a 0..255
+scale (the twin's weights and tap order, -fmad=false); K6 1e-3 px, the
+JAX package's bound for hs_jacobi (it repeats hs_jacobi_plain's
+arithmetic); K2's bilinear shadow mode 1e-4. The sweep update, the flow
+update's variants and the reconstruction on the card against their plain
+runs on the CPU.
 """
 
 import numpy as np
@@ -22,7 +26,7 @@ import torch
 
 from meshrecon_torch import parity, problems, state
 from meshrecon_torch.flow import jacobi, tile_warp
-from meshrecon_torch.flow.remap import bilinear_warp
+from meshrecon_torch.flow.remap import bilinear_warp, flow_remap
 from meshrecon_torch.flow.variational import _hs_sweeps, _hs_sweeps_cheb
 from meshrecon_torch.pipeline.fused import (fused_main_update_batched,
                                             fused_sweep_update_batched)
@@ -85,6 +89,59 @@ def test_sample_shadow_frame(dev, n, h, w):
     oa, ob = tile_warp.tile_warp_sample2_batched(a, b, col, row)
     assert torch.equal(oa, nearest_sample(a, col, row))
     assert (ob - bilinear_sample(b, col, row)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("n,h,w", [(3, 37, 53), (12, 96, 128)])
+def test_sample_shadow_frame_bilinear_mode(dev, n, h, w):
+    g = torch.Generator().manual_seed(5)
+    a = torch.rand((n, h, w), generator=g).to(dev)
+    b = (255 * torch.rand((n, h, w), generator=g)).to(dev)
+    col = ((w + 10) * torch.rand((n, h, w), generator=g) - 5).to(dev)
+    row = ((h + 10) * torch.rand((n, h, w), generator=g) - 5).to(dev)
+    before = tile_warp.K2.launches
+    oa, ob = tile_warp.tile_warp_sample2_batched(a, b, col, row,
+                                                 bilinear_a=True)
+    assert tile_warp.K2.launches == before + 1
+    assert (oa - bilinear_sample(a, col, row)).abs().max().item() <= 1e-4
+    assert (ob - bilinear_sample(b, col, row)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 31, 45), (12, 120, 160)])
+def test_warp_bicubic(dev, n, h, w):
+    """K3b against flow_remap, with flows that reach off the frame."""
+    g = torch.Generator().manual_seed(6)
+    img = (255 * torch.rand((n, h, w), generator=g)).to(dev)
+    u = (6 * torch.randn((n, h, w), generator=g)).to(dev)
+    v = (6 * torch.randn((n, h, w), generator=g)).to(dev)
+    before = (tile_warp.K3.launches, tile_warp.K3B.launches)
+    out = tile_warp.tile_warp_flow_batched(img, u, v, taps=4)
+    assert (tile_warp.K3.launches, tile_warp.K3B.launches) == (
+        before[0], before[1] + 1)
+    ref = flow_remap(torch.stack([u, v], -1), img)
+    assert (out - ref).abs().max().item() <= 1e-4
+    cols = torch.arange(w, dtype=torch.float32, device=dev)
+    rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    scol, srow = cols + u, rows + v
+    out = tile_warp.tile_warp_bicubic(img, scol, srow)
+    ref = tile_warp.tile_warp_bicubic(img.cpu(), scol.cpu(), srow.cpu())
+    assert (out.cpu() - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("iters", [1, 2, 60])
+def test_hs_jacobi_fields(dev, iters):
+    g = torch.Generator().manual_seed(7)
+    shape = (3, 40, 56)
+    ix, iy = (8 * torch.randn(shape, generator=g)).to(dev), (
+        8 * torch.randn(shape, generator=g)).to(dev)
+    c = (20 * torch.randn(shape, generator=g)).to(dev)
+    u0 = torch.randn(shape, generator=g).to(dev)
+    v0 = torch.randn(shape, generator=g).to(dev)
+    before = jacobi.K6.launches
+    u, v = jacobi.hs_jacobi(ix, iy, c, u0, v0, 144.0, iters=iters)
+    assert jacobi.K6.launches == before + iters
+    ur, vr = jacobi.hs_jacobi_plain(ix, iy, c, u0, v0, 144.0, iters=iters)
+    assert (u - ur).abs().max().item() <= 1e-3
+    assert (v - vr).abs().max().item() <= 1e-3
 
 
 @pytest.mark.parametrize("n,h,w", [(2, 31, 45), (12, 120, 160)])
@@ -170,6 +227,10 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
         tile_warp.tile_warp_sample_batched(x, x, x, (x > 0.5).float())
     with pytest.raises(ValueError):
         tile_warp.tile_warp_sample_batched(x, x, x, (x > 0)[:1])
+    with pytest.raises(ValueError):
+        tile_warp.tile_warp_flow_batched(x, x, x, taps=3)
+    with pytest.raises(ValueError):
+        jacobi.hs_jacobi(x, x, x[:1], x, x, 144.0)
 
 
 def test_fused_slice_on_gpu_matches_cpu(dev):
@@ -183,6 +244,23 @@ def test_fused_slice_on_gpu_matches_cpu(dev):
     assert all(k.launches > n for k, n in counts.items())
     cpu = state.to_numpy(fused_main_update_batched(
         *state.from_numpy(args, "cpu"), 48, 64))
+    parity.check_slice(gpu, cpu)
+
+
+@pytest.mark.parametrize("kwargs,kernel", [
+    ({"variance": "rewarp"}, "K3B"), ({"use_farneback": True}, "K3B"),
+    ({"flow_solver": "mg"}, "K3"), ({"shadow_sample": "bilinear"}, "K2"),
+    ({"variance": "rewarp", "variance_taps": 2}, "K3")])
+def test_fused_variants_on_gpu_match_cpu(dev, kwargs, kernel):
+    """The flow update's options on the card against the CPU."""
+    args = problems.fused_problem(2, 2, 48, 64, seed=3)
+    k = getattr(tile_warp, kernel)
+    before = k.launches
+    gpu = state.to_numpy(fused_main_update_batched(
+        *state.from_numpy(args, dev), 48, 64, **kwargs))
+    assert k.launches > before
+    cpu = state.to_numpy(fused_main_update_batched(
+        *state.from_numpy(args, "cpu"), 48, 64, **kwargs))
     parity.check_slice(gpu, cpu)
 
 
@@ -206,8 +284,8 @@ def test_sweep_update_on_gpu_matches_cpu(dev):
             ).mean() >= 0.99
 
 
-def test_cli_on_gpu(dev, tmp_path):
-    """The default reconstruction at 1/8 size through every kernel."""
+def _cli_launches(tmp_path, flags):
+    """Run the CLI at 1/8 size on the card; kernel name -> launches."""
     from meshrecon_torch import cli
     from meshrecon_torch.io.obj import read_mesh
     from meshrecon_torch.kernels import all_kernels
@@ -217,6 +295,27 @@ def test_cli_on_gpu(dev, tmp_path):
     out = str(tmp_path / "gpu.obj")
     assert cli.main(["tracks/koule-tr.yaml", "--synthetic", "sphere", "-s",
                      "8", "-n", "2", "--seed", "3", "-o", out,
-                     "--poisson-grid", "64"]) == 0
+                     "--poisson-grid", "64", *flags]) == 0
     assert len(read_mesh(out).faces) > 0
-    assert all(k.launches > before[k.name] for k in kernels)
+    return {k.name: k.launches - before[k.name] for k in kernels}
+
+
+def test_cli_on_gpu(dev, tmp_path):
+    """The default reconstruction at 1/8 size through every kernel of its
+    path."""
+    launches = _cli_launches(tmp_path, [])
+    for k in (binned.K1, tile_warp.K2, tile_warp.K3, tile_warp.K3C,
+              jacobi.K4):
+        assert launches[k.name] > 0, k.name
+    assert launches[tile_warp.K3B.name] == launches[jacobi.K6.name] == 0
+
+
+@pytest.mark.parametrize("flags,kernels", [
+    (["--variance-mode", "rewarp"], ("K3B", "K3", "K4")),
+    (["-f"], ("K3B", "K3")),
+    (["--flow-solver", "mg", "--shadow-sample", "bilinear"], ("K2", "K3"))])
+def test_cli_variants_on_gpu(dev, tmp_path, flags, kernels):
+    launches = _cli_launches(tmp_path, flags)
+    for name in kernels:
+        k = getattr(tile_warp, name, None) or getattr(jacobi, name)
+        assert launches[k.name] > 0, name

@@ -115,7 +115,7 @@ def test_single_bundle_path_matches_jax(koule_small, mode):
     jcfg = JConfig(track=track, frames=frames, **kw)
     out = []
     for c, hint, rend, process in (
-            (cfg, Heuristic(cfg), Renderer(80, 60),
+            (cfg, Heuristic(cfg), Renderer(80, 60, device="cpu"),
              reconstruct.process_main_camera),
             (jcfg, JHeuristic(jcfg), JRenderer(80, 60),
              j_pmc)):
@@ -170,9 +170,7 @@ def test_device_busy_merges_device_events_only():
 
 
 @pytest.mark.parametrize("flag", [
-    ["-f"], ["--flow-solver", "mg"], ["--variance-mode", "rewarp"],
-    ["--variance-taps", "4"], ["--shadow-sample", "bilinear"], ["-e"],
-    ["--mesh-devices", "2"], ["--scene-devices", "2"],
+    ["-e"], ["--mesh-devices", "2"], ["--scene-devices", "2"],
     ["--ensemble-seeds", "1,2"], ["--preset", "quality"], ["-V"], [],
     ["tracks/koberec.yaml"]])
 def test_unported_flags_raise(flag):
@@ -181,6 +179,61 @@ def test_unported_flags_raise(flag):
     argv = ["tracks/koule-tr.yaml"] + flag + ["--device", "cpu"] + synthetic
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         config_from_args(argv)
+
+
+@pytest.mark.parametrize("flag,field,value,attr", [
+    (["-f"], "use_farneback", True, "use_farneback"),
+    (["--flow-solver", "mg"], "flow_solver", "mg", "flow_solver"),
+    (["--variance-mode", "rewarp"], "variance_mode", "rewarp", "variance"),
+    (["--variance-taps", "2"], "variance_taps", 2, "variance_taps"),
+    (["--shadow-sample", "bilinear"], "shadow_sample", "bilinear",
+     "shadow_sample")], ids=["f", "mg", "rewarp", "taps", "shadow"])
+def test_ported_flags_reach_the_update(flag, field, value, attr):
+    """Each flow option lands in Config and in the update module; the
+    shadow sampler also in the sweep update. Without the flag, the JAX
+    package's default."""
+    argv = ["tracks/koule-tr.yaml", "--synthetic", "sphere", "-s", "16",
+            "--device", "cpu"]
+    cfg = config_from_args(argv + flag)
+    assert getattr(cfg, field) == value
+    assert getattr(reconstruct.main_update(cfg), attr) == value
+    if field == "shadow_sample":
+        assert reconstruct.sweep_update(cfg).shadow_sample == value
+    default = config_from_args(argv)
+    assert (default.use_farneback, default.flow_solver,
+            default.variance_mode, default.variance_taps,
+            default.shadow_sample) == (False, "cheb", "taylor", 4, "nearest")
+
+
+@pytest.mark.parametrize("entry", ["Renderer", "synthetic_frames",
+                                   "poisson_surface", "density_scores",
+                                   "filter_points"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Without CUDA, an entry point called without ``device`` raises (its
+    default is the card); with device="cpu" it runs."""
+    from meshrecon_torch.io.synthetic import synthetic_frames
+    from meshrecon_torch.io.tracks import load_tracks as t_load_tracks
+    from meshrecon_torch.meshing.poisson import poisson_surface
+    from meshrecon_torch.points.filter import density_scores, filter_points
+    from meshrecon_torch.raster.rasterizer import Renderer
+
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(200, 3)).astype(np.float32)
+    pts4 = np.concatenate([pts, np.ones((200, 1), np.float32)], 1)
+    nrm = pts / np.linalg.norm(pts, axis=1, keepdims=True)
+    calls = {
+        "Renderer": lambda **kw: Renderer(16, 12, **kw),
+        "synthetic_frames": lambda **kw: synthetic_frames(
+            t_load_tracks("tracks/koule-tr.yaml"), 16, 12, **kw),
+        "poisson_surface": lambda **kw: poisson_surface(pts4, nrm, grid=16,
+                                                        **kw),
+        "density_scores": lambda **kw: density_scores(pts, 0.1, **kw),
+        "filter_points": lambda **kw: filter_points(pts4, nrm, 0.1, **kw),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+    calls[entry](device="cpu")
 
 
 @pytest.mark.parametrize("flag", ["--raster-tile-h", "--hs-fused-min-px",

@@ -62,5 +62,6 @@ def test_filter_points_keeps_jax_set(n, radius_sq):
 
 def test_filter_points_empty():
     p, q, kept = filt.filter_points(np.zeros((0, 4), np.float32),
-                                    np.zeros((0, 3), np.float32), 0.1)
+                                    np.zeros((0, 3), np.float32), 0.1,
+                                    device="cpu")
     assert p.shape == (0, 4) and q.shape == (0, 3) and len(kept) == 0
