@@ -19,6 +19,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
    K2's bilinear shadow mode; K3b (the bicubic re-warp) at 12x480x640 and
    at the K=8 bucket 4x8x480x640; K6 (Jacobi sweeps given the fields) at
    12x480x640, 60 sweeps. A missed bound raises.
+   After K1: the raster phase. K5 (the two-level raster, one kernel for
+   the TPU's K5a and K5b) bitwise against ``render_depth`` through
+   ``render_depth_binned(two_level=True)`` at one camera (K5a) and
+   ``render_depth_binned_batched`` at 4 and 16 cameras (K5b), on the
+   16,384- and 65,536-triangle spheres and the fused problem's soup at
+   640x480, with the binning's and the kernel's ms apart; K1's binning /
+   kernel split and both binnings' peak memory at 16 cameras; then the
+   raster sweep tool (``meshrecon_torch.tools.raster_sweep``) at its
+   defaults with chunks 8 and 16.
 4. The solver check (the multigrid solver's path on the card): at
    12x240x320, ``hs_solve_mg`` (2 cycles) and 60 K6 sweeps against a
    1,500-sweep K6 fixed point; the multigrid error must beat the 60-sweep
@@ -51,7 +60,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the count of the path it serves, read just after that path's run with
    the counters reset just before: K1, K2, K3, K3c and K4 from the default
    reconstruction, K3b from the rewarp reconstruction, K6 from the solver
-   check.
+   check, K5a and K5b from the raster sweep tool's run.
 
 TF32 is switched off for matmuls and cuDNN: the reference computes in full
 float32 (``Precision.HIGHEST``).
@@ -169,6 +178,17 @@ class Results:
                 bound_by=bound_by, library_ms=library_ms)
 
 
+def _raster_work(ncam, soup, valid, covered):
+    """(bytes, operations) of ``ncam`` depth renders of a soup (K1, K5):
+    bytes: cameras, soup, validity in, depth out; operations: each valid
+    vertex projected by each camera (4x4 x 4: 28) and, at least, one
+    fragment per covered pixel (3 edge functions + the depth plane, 4
+    each)."""
+    ntri = int(valid.sum().item())
+    return (ncam * 64 + soup.numel() * 4 + valid.numel() + ncam * H * W * 4,
+            ncam * ntri * 3 * 28 + covered * ncam * H * W * 16)
+
+
 def _smooth_field(torch, gen, shape, scale, device):
     """Smooth random field: noise box-blurred twice (torch ops only)."""
     x = torch.randn(shape, generator=gen).to(device)
@@ -230,15 +250,8 @@ def kernel_phases(torch, dev, res, slice_args):
             cams, soup, valid, H, W), 10)
         plain_ms = _cuda_ms(torch, lambda: rasterizer.render_depth(
             cams, soup, valid, H, W), 1, warm_up=False)
-        # bytes: cameras, soup, validity in, depth out; operations: each
-        # vertex projected by each camera (4x4 x 4: 28) and, at least, one
-        # fragment per covered pixel (3 edge functions + the depth plane,
-        # 4 each)
-        ntri = int(valid.sum().item())
-        work = (ncam * 64 + soup.numel() * 4 + valid.numel()
-                + ncam * H * W * 4,
-                ncam * ntri * 3 * 28 + covered * ncam * H * W * 16)
-        res.add(binned.K1, label, err, 0.0, ms, plain_ms, work=work)
+        res.add(binned.K1, label, err, 0.0, ms, plain_ms,
+                work=_raster_work(ncam, soup, valid, covered))
         if depth_sides is None:
             depth_sides = out.reshape(B, K + 1, H, W)[:, 1:].reshape(
                 B * K, H, W)
@@ -344,6 +357,107 @@ def kernel_phases(torch, dev, res, slice_args):
         # linearization, 33 a Chebyshev sweep
         res.add(jacobi.K4, f"{n}x{h}x{w}, 14 cheb sweeps", err, 1e-4, ms,
                 plain_ms, work=(24 * npx, (22 + 14 * 33) * npx))
+
+
+def _peak_mb(torch, fn):
+    """Peak device memory of one call of ``fn`` above what was allocated
+    before it, in MB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def raster_phase(torch, dev, res, slice_args):
+    """K5 (the two-level raster) against ``render_depth``, bitwise, through
+    both of its wrappers: K5a at one camera, K5b at 4 and at the flow
+    update's 16 cameras, on the 16,384- and 65,536-triangle spheres and the
+    fused problem's soup at 640x480; each with its wrapper, binning and
+    kernel ms, and K1's split and both binnings' peak memory at 16 cameras.
+    Then the raster sweep tool at its defaults with chunks 8 and 16, its
+    launch counts reset just before: returns them (K5a's and K5b's path)."""
+    from meshrecon_torch import problems, state
+    from meshrecon_torch.kernels import all_kernels
+    from meshrecon_torch.raster import binned, rasterizer
+    from meshrecon_torch.tools import raster_sweep
+
+    cams16 = torch.cat([slice_args[2][:, None], slice_args[4]], 1).reshape(
+        B * (K + 1), 4, 4)
+    soups = [(f"{2 * nt * nph} tris", state.pack_soup(
+        problems.sphere_soup(nt, nph))) for nt, nph in ((64, 128),
+                                                        (128, 256))]
+    soups.append(("fused problem soup, 512 tris",
+                  problems.fused_problem(1, K, 8, 8, seed=SEED)[:2]))
+    for soup_label, arrays in soups:
+        soup, valid = (torch.from_numpy(a).to(dev) for a in arrays)
+        for kernel, ncam in ((binned.K5A, 1), (binned.K5B, B * (K + 1)),
+                             (binned.K5B, K + 1)):
+            cams = cams16[:ncam]
+            label = f"{ncam}x{H}x{W}, {soup_label}"
+            if kernel is binned.K5A:
+                def fn():
+                    return binned.render_depth_binned(
+                        cams, soup, valid, H, W, two_level=True)
+            else:
+                def fn():
+                    return binned.render_depth_binned_batched(
+                        cams, soup, valid, H, W)
+            ref = rasterizer.render_depth(cams, soup, valid, H, W)
+            out = fn()
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            covered = (ref < 1.0).float().mean().item()
+            if covered < 0.01:
+                raise AssertionError(f"{label}: the soup is not on screen")
+            ms = _cuda_ms(torch, fn, 10)
+            plain_ms = _cuda_ms(torch, lambda: rasterizer.render_depth(
+                cams, soup, valid, H, W), 1, warm_up=False)
+            bins = binned.bin_soup(cams, soup, valid, H, W, two_level=True)
+            bin_ms = _cuda_ms(torch, lambda: binned.bin_soup(
+                cams, soup, valid, H, W, two_level=True), 10)
+            kern_ms = _cuda_ms(torch, lambda: binned.raster_binned(
+                kernel, bins), 10)
+            print(f"{kernel.name} [{label}]: covered share {covered:.4f}; "
+                  f"binning {bin_ms:.4f} ms, kernel alone {kern_ms:.4f} ms "
+                  f"(list table {bins['lists'].numel()} entries)")
+            del bins
+            res.add(kernel, label, err, 0.0, ms, plain_ms,
+                    work=_raster_work(ncam, soup, valid, covered))
+
+        # K1 at 16 cameras: the binning against the kernel, and the peak
+        # memory of each binning
+        cams = cams16
+        bins = binned.bin_soup(cams, soup, valid, H, W)
+        k1_ms = _cuda_ms(torch, lambda: binned.render_depth_binned(
+            cams, soup, valid, H, W), 10)
+        k1_bin = _cuda_ms(torch, lambda: binned.bin_soup(
+            cams, soup, valid, H, W), 10)
+        k1_kern = _cuda_ms(torch, lambda: binned.raster_binned(binned.K1,
+                                                               bins), 10)
+        del bins
+        mem1 = _peak_mb(torch, lambda: binned.bin_soup(cams, soup, valid, H,
+                                                       W))
+        mem2 = _peak_mb(torch, lambda: binned.bin_soup(
+            cams, soup, valid, H, W, two_level=True))
+        print(f"raster_tiles [{len(cams)}x{H}x{W}, {soup_label}]: wrapper "
+              f"{k1_ms:.4f} ms = binning {k1_bin:.4f} ms + kernel alone "
+              f"{k1_kern:.4f} ms; binning peak memory: one level (K1) "
+              f"{mem1:.1f} MB, two levels (K5b) {mem2:.1f} MB")
+
+    for k in all_kernels():
+        k.launches = 0
+    t0 = time.perf_counter()
+    raster_sweep.main(["--chunks", "8,16"])
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in all_kernels()}
+    print(f"raster sweep tool: {time.perf_counter() - t0:.1f} s, launches "
+          f"{launches}")
+    for k in (binned.K1, binned.K5A, binned.K5B):
+        if launches[k.name] == 0:
+            raise AssertionError(f"{k.name} not launched by the sweep tool")
+    return launches
 
 
 def k3b_phase(torch, dev, res):
@@ -806,6 +920,8 @@ def main() -> int:
     args_np[0], args_np[1] = state.pack_soup(problems.sphere_soup(64, 128))
     res = Results()
     kernel_phases(torch, dev, res, state.from_numpy(args_np, dev))
+    raster_launches = raster_phase(torch, dev, res,
+                                   state.from_numpy(args_np, dev))
     k3b_phase(torch, dev, res)
     k6_phase(torch, dev, res)
     torch.cuda.synchronize()
@@ -836,8 +952,11 @@ def main() -> int:
     path_launches = {k.name: default[k.name] for k in (K1, K2, K3, K3C, K4)}
     path_launches[K3B.name] = rewarp[K3B.name]
     path_launches[K6.name] = solver_launches[K6.name]
+    for k in (binned.K5A, binned.K5B):
+        path_launches[k.name] = raster_launches[k.name]
     print("launches: K1, K2, K3, K3c, K4 from the default reconstruction, "
-          "K3b from the rewarp reconstruction, K6 from the solver check")
+          "K3b from the rewarp reconstruction, K6 from the solver check, "
+          "K5a and K5b from the raster sweep tool")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"device check")
     kernels = [dict(

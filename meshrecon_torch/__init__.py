@@ -18,8 +18,8 @@ update's options):
   (``reconstruct``), the camera policy (``heuristic``), checkpoints, and
   the fused flow and plane-sweep updates
 - ``meshrecon_torch.raster``   -- clip/project setup, plain z-buffer render,
-  occlusion probe, ``Renderer``, tile binning + the binned raster kernel
-  (K1), projective texturing (K2)
+  occlusion probe, ``Renderer``, tile binning + the binned raster kernels
+  (K1; K5, the two-level one), projective texturing (K2)
 - ``meshrecon_torch.flow``     -- pyramids, bilinear warp (K3), bicubic
   re-warp (K3b), masked bilinear sample (K3c), Horn-Schunck relaxation
   (K4) and Jacobi sweeps given the fields (K6), variational flow with the
@@ -33,6 +33,8 @@ update's options):
 - ``meshrecon_torch.io``       -- track YAML, OBJ, synthetic frames
 - ``meshrecon_torch.state``    -- numpy <-> tensor conversion of update inputs
 - ``meshrecon_torch.problems`` -- seeded synthetic update problems
+- ``meshrecon_torch.tools``    -- the raster sweep (``python -m
+  meshrecon_torch.tools.raster_sweep``)
 """
 
 __version__ = "0.1.0"

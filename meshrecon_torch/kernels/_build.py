@@ -43,6 +43,7 @@ NVCC_FLAGS = (
 # F = float. The stream is always the last argument.
 _SIGNATURES = {
     "mr_raster_tiles": "PPPPPPPPPP" + "IIIIIII" + "P",
+    "mr_raster_tiles2": "PPPPPPPPPPP" + "IIIIIIII" + "P",
     "mr_sample_shadow_frame": "PPPPPP" + "IIII" + "P",
     "mr_warp_bilinear": "PPPP" + "III" + "P",
     "mr_warp_bicubic": "PPPP" + "III" + "P",

@@ -1,22 +1,28 @@
-"""Binned depth rendering: torch-side tile binning and the K1 wrapper.
+"""Binned depth rendering: torch-side tile binning and the K1 / K5 wrappers.
 
-Port of meshrecon/raster/binned.py (its one-level path,
-``render_depth_binned(two_level=False)``):
+Port of meshrecon/raster/binned.py, both of its paths:
 
 1. :func:`morton_order` (numpy, on the host) sorts a soup by the Morton code
-   of its centroids once per mesh, so 8-triangle chunks stay compact.
+   of its centroids once per mesh, so chunks of consecutive records stay
+   compact.
 2. :func:`pack_records` projects the soup for every camera and packs 16
    float planes per record (affine edge coefficients, vertex z, bbox).
-3. :func:`bin_chunks` lists, per screen tile, the chunks whose bbox union
-   overlaps it, sorted, with a count.
-4. K1 (``csrc/raster.cu``) walks each tile's list, one CTA per 16x16 tile,
-   all cameras in one launch.
+3. One level (``render_depth_binned``): :func:`bin_chunks` lists, per screen
+   tile, the chunks whose bbox union overlaps it, and K1
+   (``csrc/raster.cu``) walks each tile's list.
+4. Two levels (``render_depth_binned(two_level=True)``,
+   ``render_depth_binned_batched``): :func:`bin_superchunks` lists, per
+   tile, the superchunks (``supers`` chunks each) whose bbox union overlaps
+   it, and K5 tests each listed chunk's bbox against the tile before it
+   stages the chunk's records.
 
-Unlike the TPU kernel, the records carry the bbox of the pixels a triangle
+Both kernels run one CTA per 16x16 tile and all cameras in one launch.
+Unlike the TPU kernels, the records carry the bbox of the pixels a triangle
 can cover (:func:`~meshrecon_torch.raster.rasterizer.coverage_bbox`), not of
 its vertices, so binning never drops a pixel inside the edge-tie fringe and
-K1 equals the plain ``render_depth`` bit for bit. There is no slab split:
-the whole soup is binned in one pass.
+the kernels equal the plain ``render_depth`` bit for bit. There is no slab
+split: the whole soup is binned in one pass, padded with invalid records to
+a whole number of chunks (of superchunks with two levels).
 """
 
 from __future__ import annotations
@@ -32,9 +38,18 @@ from meshrecon_torch.raster.rasterizer import (clip_project_planes,
 
 TILE = 16   # screen tile edge in pixels: one 256-thread CTA per tile
 CHUNK = 8   # records per binned chunk
+CHUNKS = (8, 16, 32, 64)  # the chunk sizes the kernels take
+SUPERS = 8  # chunks per superchunk of the two-level lists
 
 K1 = Kernel("raster_tiles", "mr_raster_tiles",
             "meshrecon_torch/csrc/raster.cu", "meshrecon/raster/binned.py:119")
+# one entry point serves both two-level kernels; each keeps its own count
+K5A = Kernel("raster_tiles2", "mr_raster_tiles2",
+             "meshrecon_torch/csrc/raster.cu",
+             "meshrecon/raster/binned.py:242")
+K5B = Kernel("raster_tiles2_batched", "mr_raster_tiles2",
+             "meshrecon_torch/csrc/raster.cu",
+             "meshrecon/raster/binned.py:259")
 
 
 def morton_order(soup: np.ndarray) -> np.ndarray:
@@ -73,6 +88,36 @@ def tile_extents(height: int, width: int, tile_h: int, tile_w: int, device):
     return tx0, tx1, ty0, ty1
 
 
+def _group_boxes(xmin, xmax, ymin, ymax, size: int):
+    """Bbox unions of consecutive groups of ``size`` along the last axis."""
+    *lead, r = xmin.shape
+
+    def agg(a, op):
+        return op(a.reshape(*lead, r // size, size), dim=-1)
+
+    return (agg(xmin, torch.amin), agg(xmax, torch.amax),
+            agg(ymin, torch.amin), agg(ymax, torch.amax))
+
+
+def _tile_lists(gxmin, gxmax, gymin, gymax, height, width, tile_h, tile_w):
+    """Per-tile sorted lists of the groups whose box overlaps the tile,
+    then the sentinel (the group count), and the counts."""
+    n = gxmin.shape[-1]
+    tx0, tx1, ty0, ty1 = tile_extents(height, width, tile_h, tile_w,
+                                      gxmin.device)
+    ax = ((gxmin[..., None, :] <= tx1[:, None])
+          & (gxmax[..., None, :] >= tx0[:, None]))  # (..., ntx, n)
+    ay = ((gymin[..., None, :] <= ty1[:, None])
+          & (gymax[..., None, :] >= ty0[:, None]))  # (..., nty, n)
+    active = (ay[..., :, None, :] & ax[..., None, :, :]).flatten(-3, -2)
+    keys = torch.where(
+        active, torch.arange(n, dtype=torch.int32, device=gxmin.device),
+        torch.tensor(n, dtype=torch.int32, device=gxmin.device))
+    lists = torch.sort(keys, dim=-1).values
+    counts = active.sum(dim=-1, dtype=torch.int32)
+    return lists, counts
+
+
 def bin_chunks(xmin, xmax, ymin, ymax, height: int, width: int,
                tile_h: int = TILE, tile_w: int = TILE, chunk: int = CHUNK):
     """Per-tile lists of the chunks whose bbox union overlaps the tile.
@@ -82,41 +127,38 @@ def bin_chunks(xmin, xmax, ymin, ymax, height: int, width: int,
     active chunk ids first, ascending, then the sentinel R/chunk; counts
     (..., nty*ntx) int32. Tiles are row-major (tile row, tile column).
     """
-    *lead, r = xmin.shape
-    nch = r // chunk
-    tx0, tx1, ty0, ty1 = tile_extents(height, width, tile_h, tile_w,
-                                      xmin.device)
-
-    def agg(a, op):
-        return op(a.reshape(*lead, nch, chunk), dim=-1)
-
-    cxmin = agg(xmin, torch.amin)
-    cxmax = agg(xmax, torch.amax)
-    cymin = agg(ymin, torch.amin)
-    cymax = agg(ymax, torch.amax)
-    ax = ((cxmin[..., None, :] <= tx1[:, None])
-          & (cxmax[..., None, :] >= tx0[:, None]))  # (..., ntx, nch)
-    ay = ((cymin[..., None, :] <= ty1[:, None])
-          & (cymax[..., None, :] >= ty0[:, None]))  # (..., nty, nch)
-    active = (ay[..., :, None, :] & ax[..., None, :, :]).flatten(-3, -2)
-    keys = torch.where(
-        active, torch.arange(nch, dtype=torch.int32, device=xmin.device),
-        torch.tensor(nch, dtype=torch.int32, device=xmin.device))
-    lists = torch.sort(keys, dim=-1).values
-    counts = active.sum(dim=-1, dtype=torch.int32)
-    return lists, counts
+    boxes = _group_boxes(xmin, xmax, ymin, ymax, chunk)
+    return _tile_lists(*boxes, height, width, tile_h, tile_w)
 
 
-def pack_records(cameras, soup, soup_valid):
-    """(N, 16, R) float32 records for K1: a0 b0 c0 a1 b1 c1 a2 b2 c2, z0 z1
-    z2, xmin xmax ymin ymax, with R = 2T rounded up to a whole chunk (the
-    padding records are invalid)."""
+def bin_superchunks(xmin, xmax, ymin, ymax, height: int, width: int,
+                    tile_h: int = TILE, tile_w: int = TILE,
+                    chunk: int = CHUNK, supers: int = SUPERS):
+    """Two-level binning: per-chunk bbox unions, and per-tile lists of the
+    superchunks (``supers`` consecutive chunks) whose union overlaps the
+    tile.
+
+    xmin..ymax: (..., R) per-record boxes, R a multiple of chunk * supers.
+    Returns ((cxmin, cxmax, cymin, cymax), lists, counts): the chunk boxes
+    (..., R/chunk) float32; lists (..., nty*ntx, nsup) int32 with the active
+    superchunk ids first, ascending, then the sentinel nsup = R/(chunk *
+    supers); counts (..., nty*ntx) int32.
+    """
+    cboxes = _group_boxes(xmin, xmax, ymin, ymax, chunk)
+    sboxes = _group_boxes(*cboxes, supers)
+    return (cboxes, *_tile_lists(*sboxes, height, width, tile_h, tile_w))
+
+
+def pack_records(cameras, soup, soup_valid, multiple: int = CHUNK):
+    """(N, 16, R) float32 records: a0 b0 c0 a1 b1 c1 a2 b2 c2, z0 z1 z2,
+    xmin xmax ymin ymax, with R = 2T rounded up to a multiple of
+    ``multiple`` (the padding records are invalid)."""
     planes = clip_project_planes(cameras, soup, soup_valid)
     coeffs = edge_affine_planes(*planes)
     ok = planes[10]
     boxes = coverage_bbox(coeffs, ok)
     packed = torch.stack(coeffs + planes[6:9] + boxes, dim=-2)
-    pad = (-packed.shape[-1]) % CHUNK
+    pad = (-packed.shape[-1]) % multiple
     if pad:
         fill = torch.zeros(packed.shape[:-1] + (pad,), dtype=packed.dtype,
                            device=packed.device)
@@ -127,29 +169,105 @@ def pack_records(cameras, soup, soup_valid):
     return packed.contiguous()
 
 
-def render_depth_binned(cameras, soup, soup_valid, height: int, width: int):
+def _check_args(chunk: int, supers: int) -> None:
+    if chunk not in CHUNKS:
+        raise ValueError(f"chunk must be one of {CHUNKS} (got {chunk})")
+    if supers < 1:
+        raise ValueError(f"supers must be >= 1 (got {supers})")
+
+
+def _on_cpu(name, cameras, soup, soup_valid) -> bool:
+    """True when every input lies on the CPU (the plain version's case);
+    False when all lie on one CUDA device as the kernels take them; raises
+    on anything else, a mix of devices included."""
+    if all(t.device.type == "cpu" for t in (cameras, soup, soup_valid)):
+        return True
+    check_cuda(name, cameras, soup)
+    check_cuda(name, soup_valid, dtype=torch.bool)
+    return False
+
+
+def bin_soup(cameras, soup, soup_valid, height: int, width: int,
+             chunk: int = CHUNK, two_level: bool = False,
+             supers: int = SUPERS) -> dict:
+    """The binning of a render (torch ops, on the inputs' device): the
+    packed records and the tile lists, one or two levels. Its result is
+    what :func:`raster_binned` launches a kernel on."""
+    _check_args(chunk, supers)
+    packed = pack_records(cameras, soup, soup_valid,
+                          chunk * supers if two_level else chunk)
+    boxes = packed[:, 12], packed[:, 13], packed[:, 14], packed[:, 15]
+    if two_level:
+        cboxes, lists, counts = bin_superchunks(*boxes, height, width,
+                                                chunk=chunk, supers=supers)
+        cbox = torch.stack(cboxes, dim=-2).contiguous()
+    else:
+        lists, counts = bin_chunks(*boxes, height, width, chunk=chunk)
+        cbox = None
+    return dict(packed=packed, lists=lists, counts=counts, cbox=cbox,
+                grid=pixel_grid(height, width, packed.device),
+                tiles=tile_extents(height, width, TILE, TILE, packed.device),
+                height=height, width=width, chunk=chunk, supers=supers)
+
+
+def raster_binned(kernel: Kernel, bins: dict) -> torch.Tensor:
+    """Launch K1 (``bins`` of one level) or K5 (two levels, through
+    ``kernel``, K5A or K5B) on the output of :func:`bin_soup`: (N, H, W)
+    float32 depth, background 1.0."""
+    packed, lists, counts = bins["packed"], bins["lists"], bins["counts"]
+    height, width, chunk = bins["height"], bins["width"], bins["chunk"]
+    px, py = bins["grid"]
+    tx0, tx1, ty0, ty1 = bins["tiles"]
+    n = packed.shape[0]
+    out = torch.empty((n, height, width), dtype=torch.float32,
+                      device=packed.device)
+    name = kernel.name
+    check_cuda(name, packed, px, py, tx0, tx1, ty0, ty1, out)
+    check_cuda(name, lists, counts, dtype=torch.int32)
+    if bins["cbox"] is None:
+        if kernel is not K1:
+            raise ValueError(f"{name}: one-level bins launch K1 only")
+        kernel.launch(packed, lists, counts, px, py, tx0, tx1, ty0, ty1, out,
+                      n, packed.shape[-1], lists.shape[-1], height, width,
+                      TILE, chunk)
+    else:
+        if kernel is K1:
+            raise ValueError(f"{name}: two-level bins launch K5 only")
+        check_cuda(name, bins["cbox"])
+        kernel.launch(packed, bins["cbox"], lists, counts, px, py, tx0, tx1,
+                      ty0, ty1, out, n, packed.shape[-1], lists.shape[-1],
+                      height, width, TILE, chunk, bins["supers"])
+    return out
+
+
+def render_depth_binned(cameras, soup, soup_valid, height: int, width: int,
+                        chunk: int = CHUNK, two_level: bool = False,
+                        supers: int = SUPERS):
     """N depth renders of one soup: cameras (N, 4, 4) -> (N, H, W) float32,
     background 1.0; same per-pixel contract as ``render_depth``.
 
-    CPU tensors take the plain ``render_depth``; CUDA tensors launch K1 once
-    for all N cameras. ``soup`` should be Morton-sorted (state.pack_soup);
-    an unsorted soup is still right, only slower.
+    CPU tensors take the plain ``render_depth``; CUDA tensors launch K1
+    (two_level=False) or K5 through K5A (two_level=True) once for all N
+    cameras. ``soup`` should be Morton-sorted (state.pack_soup); an unsorted
+    soup is still right, only slower.
     """
-    if not cameras.is_cuda:
+    _check_args(chunk, supers)
+    if _on_cpu("render_depth_binned", cameras, soup, soup_valid):
         return render_depth(cameras, soup, soup_valid, height, width)
-    cameras = cameras.to(torch.float32)
-    n = cameras.shape[0]
-    packed = pack_records(cameras, soup, soup_valid)
-    lists, counts = bin_chunks(packed[:, 12], packed[:, 13], packed[:, 14],
-                               packed[:, 15], height, width)
-    px, py = pixel_grid(height, width, cameras.device)
-    tx0, tx1, ty0, ty1 = tile_extents(height, width, TILE, TILE,
-                                      cameras.device)
-    out = torch.empty((n, height, width), dtype=torch.float32,
-                      device=cameras.device)
-    check_cuda("render_depth_binned", packed, px, py, tx0, tx1, ty0, ty1, out)
-    check_cuda("render_depth_binned", lists, counts, dtype=torch.int32)
-    K1.launch(packed, lists, counts, px, py, tx0, tx1, ty0, ty1, out,
-              n, packed.shape[-1], lists.shape[-1], height, width, TILE,
-              CHUNK)
-    return out
+    bins = bin_soup(cameras, soup, soup_valid, height, width, chunk,
+                    two_level, supers)
+    return raster_binned(K5A if two_level else K1, bins)
+
+
+def render_depth_binned_batched(cameras, soup, soup_valid, height: int,
+                                width: int, chunk: int = CHUNK,
+                                supers: int = SUPERS):
+    """The camera-batched two-level render: cameras (N, 4, 4) -> (N, H, W),
+    as ``render_depth_binned(two_level=True)``, counted as K5B. CPU tensors
+    take the plain ``render_depth``."""
+    _check_args(chunk, supers)
+    if _on_cpu("render_depth_binned_batched", cameras, soup, soup_valid):
+        return render_depth(cameras, soup, soup_valid, height, width)
+    bins = bin_soup(cameras, soup, soup_valid, height, width, chunk, True,
+                    supers)
+    return raster_binned(K5B, bins)

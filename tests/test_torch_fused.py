@@ -161,7 +161,8 @@ def test_port_never_imports_jax():
                "meshrecon_torch.meshing.poisson",
                "meshrecon_torch.meshing.native",
                "meshrecon_torch.points.filter",
-               "meshrecon_torch.utils.profiling")
+               "meshrecon_torch.utils.profiling",
+               "meshrecon_torch.tools.raster_sweep")
     code = (f"import sys, {', '.join(modules)}; "
             "sys.exit('jax' in sys.modules or 'meshrecon' in sys.modules)")
     root = Path(__file__).resolve().parent.parent

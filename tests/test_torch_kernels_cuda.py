@@ -6,7 +6,8 @@ it run it without the repository's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Bounds: K1 bitwise against ``render_depth`` (same affine edge coefficients,
+Bounds: K1 and K5 (the two-level raster, through both of its wrappers)
+bitwise against ``render_depth`` (same affine edge coefficients,
 explicitly rounded operations in the same order); K2's nearest sample
 bitwise (an index pick); K2's bilinear sample and K3 1e-4 on a 0..255
 scale (the library is built with -fmad=false, so the operation order is
@@ -76,6 +77,122 @@ def test_raster_tiles_near_straddle_bitwise(dev):
     out = binned.render_depth_binned(cam[None], soup, valid, 96, 128)[0]
     ref = rasterizer.render_depth(cam, soup, valid, 96, 128)
     assert torch.equal(out, ref)
+
+
+def _counts():
+    return tuple(k.launches for k in (binned.K1, binned.K5A, binned.K5B))
+
+
+@pytest.mark.parametrize("h,w,sphere", [(48, 64, (16, 16)),
+                                        (50, 70, (32, 64)),
+                                        (480, 640, (64, 128)),
+                                        (480, 640, (128, 256))])
+def test_raster_tiles2_bitwise(dev, h, w, sphere):
+    """K5 through both wrappers, each counted on its own object."""
+    soup, valid = (torch.from_numpy(a).to(dev) for a in
+                   state.pack_soup(problems.sphere_soup(*sphere)))
+    cams = _cams(1, 3, dev)
+    k1, k5a, k5b = _counts()
+    out_a = binned.render_depth_binned(cams, soup, valid, h, w,
+                                       two_level=True)
+    assert _counts() == (k1, k5a + 1, k5b)
+    out_b = binned.render_depth_binned_batched(cams, soup, valid, h, w)
+    assert _counts() == (k1, k5a + 1, k5b + 1)
+    ref = rasterizer.render_depth(cams, soup, valid, h, w)
+    assert (ref < 1.0).any()
+    assert torch.equal(out_a, ref) and torch.equal(out_b, ref)
+
+
+@pytest.mark.parametrize("chunk,supers", [(8, 8), (16, 3), (64, 1)])
+def test_raster_tiles2_near_straddle_bitwise(dev, chunk, supers):
+    """200 triangles (400 records: never a whole number of superchunks)
+    straddling the near plane."""
+    rng = np.random.default_rng(12345)
+    soup = torch.from_numpy(rng.normal(size=(200, 3, 3)).astype(
+        np.float32)).to(dev)
+    valid = torch.ones(200, dtype=torch.bool, device=dev)
+    cam = torch.from_numpy(problems.make_camera(near=0.01, far=10.0,
+                                                eye=(0, 0, 0.2))).to(dev)
+    ref = rasterizer.render_depth(cam, soup, valid, 96, 128)
+    out = binned.render_depth_binned(cam[None], soup, valid, 96, 128,
+                                     chunk=chunk, two_level=True,
+                                     supers=supers)[0]
+    assert torch.equal(out, ref)
+    out = binned.render_depth_binned_batched(cam[None], soup, valid, 96, 128,
+                                             chunk=chunk, supers=supers)[0]
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("chunk,supers", [(8, 1), (16, 3), (32, 8), (64, 8),
+                                          (64, 2)])
+def test_raster_tiles2_chunks_bitwise(dev, chunk, supers):
+    """An unsorted 4,000-triangle soup (8,000 records, padded to whole
+    superchunks) at every chunk size."""
+    soup = torch.from_numpy(problems.sphere_soup(40, 50)).to(dev)
+    valid = torch.ones(len(soup), dtype=torch.bool, device=dev)
+    cams = _cams(1, 3, dev)
+    ref = rasterizer.render_depth(cams, soup, valid, 96, 128)
+    out = binned.render_depth_binned_batched(cams, soup, valid, 96, 128,
+                                             chunk=chunk, supers=supers)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_raster_tiles_chunks_bitwise(dev, chunk):
+    """K1 at the sweep's other chunk sizes against chunk 8."""
+    soup, valid = (torch.from_numpy(a).to(dev) for a in
+                   state.pack_soup(problems.sphere_soup(64, 128)))
+    cams = _cams(1, 3, dev)
+    want = binned.render_depth_binned(cams, soup, valid, 120, 160)
+    before = binned.K1.launches
+    out = binned.render_depth_binned(cams, soup, valid, 120, 160,
+                                     chunk=chunk)
+    assert binned.K1.launches == before + 1
+    assert (want < 1.0).any() and torch.equal(out, want)
+
+
+def test_raster_wrappers_refuse(dev):
+    soup, valid = (torch.from_numpy(a).to(dev) for a in
+                   state.pack_soup(problems.sphere_soup(8, 8)))
+    cams = _cams(1, 1, dev)
+    for fn, kwargs in ((binned.render_depth_binned, {"chunk": 12}),
+                       (binned.render_depth_binned,
+                        {"two_level": True, "supers": 0}),
+                       (binned.render_depth_binned_batched, {"chunk": 4}),
+                       (binned.render_depth_binned_batched, {"supers": 0})):
+        with pytest.raises(ValueError):
+            fn(cams, soup, valid, 32, 48, **kwargs)
+    for fn in (binned.render_depth_binned,
+               binned.render_depth_binned_batched):
+        for args in ((cams.cpu(), soup, valid), (cams, soup.cpu(), valid),
+                     (cams, soup, valid.cpu()), (cams.double(), soup, valid)):
+            with pytest.raises(ValueError):
+                fn(*args, 32, 48)
+    # the C entries refuse a chunk or a table they do not take
+    counts = _counts()
+    bins = binned.bin_soup(cams, soup, valid, 32, 48)
+    bins["chunk"] = 12
+    with pytest.raises(RuntimeError, match="raster_tiles"):
+        binned.raster_binned(binned.K1, bins)
+    bins = binned.bin_soup(cams, soup, valid, 32, 48, two_level=True)
+    bins["supers"] = 3
+    with pytest.raises(RuntimeError, match="raster_tiles2"):
+        binned.raster_binned(binned.K5B, bins)
+    with pytest.raises(ValueError):
+        binned.raster_binned(binned.K1, bins)
+    assert _counts() == counts
+
+
+def test_raster_sweep_on_gpu(dev):
+    from meshrecon_torch.tools import raster_sweep
+
+    rows = raster_sweep.main(["--height", "96", "--width", "128", "--tris",
+                              "3200", "--reps", "2", "--chunks", "8,64",
+                              "--batched"])
+    assert len(rows) == 2 * 2 * 5 + 1
+    for r in rows:
+        if r["variant"] != "plain":
+            assert r["kernel_ms"] > 0 and r["peak_mb"] > 0
 
 
 @pytest.mark.parametrize("n,h,w", [(3, 37, 53), (12, 96, 128)])
