@@ -13,7 +13,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    sides, B=4): max difference against a stated bound, kernel and plain
    times (CUDA events after a warm-up), the least time the card could take
    (``bound_ms``: bytes over 3.35 TB/s or float32 operations over 67
-   TFLOP/s, whichever is larger, H100 SXM data sheet), and the time of the
+   TFLOP/s, whichever is larger, H100 SXM data sheet; the peaks and
+   ``bound`` live in ``meshrecon_torch.tools.roofline``), and the time of the
    one PyTorch call that computes the same function where there is one
    (``grid_sample``; a yardstick only, never called by the port). K1-K4;
    K2's bilinear shadow mode; K3b (the bicubic re-warp) at 12x480x640 and
@@ -28,6 +29,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernel split and both binnings' peak memory at 16 cameras; then the
    raster sweep tool (``meshrecon_torch.tools.raster_sweep``) at its
    defaults with chunks 8 and 16.
+   Then the roofline phase: R1-R4 (the roofline probes) against their
+   plain versions at the roofline tool's shapes (R1 4096x4096, R2 one
+   256x512 block of 2,048 FMAs, R3 8x128 in one CTA, R4 512x128 in 64 and
+   in 1 CTAs; R1, R3, R4 bitwise, R2 1e-6 relative), with ``torch.mul`` /
+   ``torch.add`` as the library yardsticks; then the roofline tool
+   (``meshrecon_torch.tools.roofline``) in-process, counters reset just
+   before. Then the breakdown phase: the breakdown tool
+   (``meshrecon_torch.tools.fused_breakdown``) at 640x480, K=3, B=1 and
+   B=4, its bound taking the tool's graph launch floor; its ``all`` stage
+   against ``FusedMainUpdate`` on the same inputs within
+   meshrecon_torch/parity.py's bounds.
 4. The solver check (the multigrid solver's path on the card): at
    12x240x320, ``hs_solve_mg`` (2 cycles) and 60 K6 sweeps against a
    1,500-sweep K6 fixed point; the multigrid error must beat the 60-sweep
@@ -60,7 +72,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the count of the path it serves, read just after that path's run with
    the counters reset just before: K1, K2, K3, K3c and K4 from the default
    reconstruction, K3b from the rewarp reconstruction, K6 from the solver
-   check, K5a and K5b from the raster sweep tool's run.
+   check, K5a and K5b from the raster sweep tool's run, R1-R4 from the
+   roofline tool's run (R3's and R4's eager launches plus its CUDA-graph
+   replays x the launches captured, since a replay does not pass through
+   ``Kernel.launch``).
 
 TF32 is switched off for matmuls and cuDNN: the reference computes in full
 float32 (``Precision.HIGHEST``).
@@ -102,12 +117,6 @@ ALPHA2 = 144.0  # alpha 12, the pipeline's
 E2E_BOUNDS = {"default": (0.20, 0.50), "rewarp": (0.20, 0.50),
               "farneback": (0.10, 0.30)}
 
-# H100 SXM data sheet: HBM bandwidth and float32 rate outside the tensor
-# cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-
-
 def _device_lines(torch):
     print(f"device: {torch.cuda.get_device_name(0)} "
           f"(count {torch.cuda.device_count()})")
@@ -136,15 +145,6 @@ def _cuda_ms(torch, fn, reps, warm_up=True):
     return start.elapsed_time(end) / reps
 
 
-def _bound(nbytes, flops):
-    """(bound_ms, bound_by): the least time the card could take to move
-    ``nbytes`` (each input read once, each output written once) and to do
-    ``flops`` float32 operations."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 class Results:
     """Per-kernel max error, and the times and bound at its first (main)
     shape."""
@@ -157,10 +157,12 @@ class Results:
             library_ms=None):
         """``work``: (bytes, float32 operations) of the call, given at the
         kernel's main shape, which is the first one added."""
+        from meshrecon_torch.tools import roofline
+
         text = (f"{kernel.name} [{label}]: max_abs_err {err:.3e} (bound "
                 f"{bound:.1e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if work is not None:
-            bound_ms, bound_by = _bound(*work)
+            bound_ms, bound_by = roofline.bound(*work)
             text += (f", bound {bound_ms:.4f} ms ({bound_by}: "
                      f"{work[0] / 1e6:.1f} MB, {work[1] / 1e9:.3f} GFLOP)")
         if library_ms is not None:
@@ -180,13 +182,13 @@ class Results:
 
 def _raster_work(ncam, soup, valid, covered):
     """(bytes, operations) of ``ncam`` depth renders of a soup (K1, K5):
-    bytes: cameras, soup, validity in, depth out; operations: each valid
-    vertex projected by each camera (4x4 x 4: 28) and, at least, one
-    fragment per covered pixel (3 edge functions + the depth plane, 4
-    each)."""
+    bytes: cameras, soup, validity in, depth out; operations:
+    ``fused_breakdown.raster_ops``."""
+    from meshrecon_torch.tools.fused_breakdown import raster_ops
+
     ntri = int(valid.sum().item())
     return (ncam * 64 + soup.numel() * 4 + valid.numel() + ncam * H * W * 4,
-            ncam * ntri * 3 * 28 + covered * ncam * H * W * 16)
+            raster_ops(ncam, ntri, covered, H, W))
 
 
 def _smooth_field(torch, gen, shape, scale, device):
@@ -226,6 +228,7 @@ def kernel_phases(torch, dev, res, slice_args):
     from meshrecon_torch.raster.fragment import (bilinear_sample,
                                                  dilate3x3_max,
                                                  nearest_sample)
+    from meshrecon_torch.tools import fused_breakdown as fb
 
     gen = torch.Generator().manual_seed(SEED)
     cams = torch.cat([slice_args[2][:, None], slice_args[4]], 1).reshape(
@@ -284,13 +287,14 @@ def kernel_phases(torch, dev, res, slice_args):
     grid = _grid(torch, scol, srow)
     lib_ms = _cuda_ms(torch, lambda: _library_sample(
         torch, lib_in, grid, "bilinear"), 50)
-    # bytes: 4 float inputs, 2 float outputs a pixel; operations: ~20 for
-    # the bilinear weights and taps, 4 for the nearest pick
+    # bytes: 4 float inputs, 2 float outputs a pixel; operations
+    # (fb.K2_OPS): ~20 for the bilinear weights and taps, 4 for the
+    # nearest pick
     # nearest is a pure index pick; bilinear repeats the plain order of
     # operations (-fmad=false), 1e-4 on the 0..255 scale absorbs nothing
     # but a changed rounding
     res.add(tile_warp.K2, f"{n}x{H}x{W} nearest", err_a, 0.0, ms, plain_ms,
-            work=(24 * px, 24 * px), library_ms=lib_ms)
+            work=(24 * px, fb.K2_OPS * px), library_ms=lib_ms)
     res.add(tile_warp.K2, f"{n}x{H}x{W} bilinear", err_b, 1e-4, ms, plain_ms)
 
     # K2's bilinear shadow mode (--shadow-sample bilinear): A on B's taps
@@ -336,7 +340,7 @@ def kernel_phases(torch, dev, res, slice_args):
             torch, lib_in, grid, "bilinear"), 50)
         # bytes: image, u, v in, one float out; ~22 operations a pixel
         res.add(tile_warp.K3, f"{n}x{h}x{w}", err, 1e-4, ms, plain_ms,
-                work=(16 * npx, 22 * npx), library_ms=lib_ms)
+                work=(16 * npx, fb.K3_OPS * npx), library_ms=lib_ms)
 
         prev = (127.5 + _smooth_field(torch, gen, (n, h, w), 120.0,
                                       dev)).contiguous()
@@ -356,7 +360,8 @@ def kernel_phases(torch, dev, res, slice_args):
         # bytes: prev, warped, u0, v0 in, u, v out; operations: 22 for the
         # linearization, 33 a Chebyshev sweep
         res.add(jacobi.K4, f"{n}x{h}x{w}, 14 cheb sweeps", err, 1e-4, ms,
-                plain_ms, work=(24 * npx, (22 + 14 * 33) * npx))
+                plain_ms, work=(24 * npx, (fb.K4_LIN_OPS
+                                           + 14 * fb.K4_SWEEP_OPS) * npx))
 
 
 def _peak_mb(torch, fn):
@@ -458,6 +463,102 @@ def raster_phase(torch, dev, res, slice_args):
         if launches[k.name] == 0:
             raise AssertionError(f"{k.name} not launched by the sweep tool")
     return launches
+
+
+def roofline_phase(torch, dev, res):
+    """R1-R4 against their plain versions at the roofline tool's shapes:
+    R1, R3 and R4 bitwise, R2 to 1e-6 relative (the plain version's float64
+    sum can round before its float32 rounding); then the roofline tool
+    (``meshrecon_torch.tools.roofline``) in-process, its launch counts reset
+    just before. Returns (the tool's numbers, its launches); R3's and R4's
+    launches add the tool's CUDA-graph replays x the launches captured."""
+    from meshrecon_torch.kernels import all_kernels
+    from meshrecon_torch.tools import roofline as rl
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    x = torch.rand(rl.COPY_SHAPE, generator=gen).to(dev)
+    y = torch.empty_like(x)
+    err = (rl.copy_scale(x) - rl.copy_scale_plain(x)).abs().max().item()
+    ms = _cuda_ms(torch, lambda: rl.copy_scale(x, out=y), 50)
+    plain_ms = _cuda_ms(torch, lambda: rl.copy_scale_plain(x), 50)
+    lib_ms = _cuda_ms(torch, lambda: torch.mul(x, rl.COPY_SCALE, out=y), 50)
+    # bytes: one float in, one out; one multiply an element
+    res.add(rl.R1, "4096x4096", err, 0.0, ms, plain_ms,
+            work=(8 * x.numel(), x.numel()), library_ms=lib_ms)
+    del x, y
+
+    b = (0.999 + 0.002 * torch.rand(rl.FMA_SHAPE, generator=gen)).to(dev)
+    o = torch.empty_like(b)
+    out, ref = rl.fma_chain(b), rl.fma_chain_plain(b)
+    rel = ((out - ref).abs() / ref.abs()).max().item()
+    print(f"{rl.R2.name}: max relative error {rel:.3e} (bound 1e-6)")
+    if not rel <= 1e-6:
+        raise AssertionError(f"{rl.R2.name}: relative error {rel}")
+    ms = _cuda_ms(torch, lambda: rl.fma_chain(b, out=o), 50)
+    plain_ms = _cuda_ms(torch, lambda: rl.fma_chain_plain(b), 2)
+    # bytes: one float in, one out; operations: 2 an FMA
+    res.add(rl.R2, f"256x512, {rl.INNER} FMAs", (out - ref).abs().max().item(),
+            1e-6 * ref.abs().max().item(), ms, plain_ms,
+            work=(8 * b.numel(), 2 * rl.INNER * b.numel()))
+
+    for kernel, rows, nblocks in ((rl.R3, rl.TINY_ROWS, 1),
+                                  (rl.R4, rl.GRID_ROWS, 64),
+                                  (rl.R4, rl.GRID_ROWS, 1)):
+        c = torch.randn((rows, rl.TINY_COLS), generator=gen).to(dev)
+        o = torch.empty_like(c)
+
+        def fn(out=None):
+            if kernel is rl.R3:
+                return rl.add_one(c, out=out)
+            return rl.add_one_grid(c, nblocks, out=out)
+        err = (fn() - rl.add_one_plain(c)).abs().max().item()
+        ms = _cuda_ms(torch, lambda: fn(o), 1000)
+        plain_ms = _cuda_ms(torch, lambda: rl.add_one_plain(c), 1000)
+        lib_ms = _cuda_ms(torch, lambda: torch.add(c, 1.0, out=o), 1000)
+        res.add(kernel, f"{rows}x{rl.TINY_COLS}, {nblocks} CTA(s)", err, 0.0,
+                ms, plain_ms, work=(8 * c.numel(), c.numel()),
+                library_ms=lib_ms)
+
+    for k in all_kernels():
+        k.launches = 0
+    t0 = time.perf_counter()
+    numbers = rl.main([])
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in all_kernels()}
+    for name, count in numbers["graph_launches"].items():
+        launches[name] += count
+    print(f"roofline tool: {time.perf_counter() - t0:.1f} s, launches "
+          f"{launches} (eager Kernel.launch calls; R3 and R4 add their "
+          f"graph replays x launches captured: {numbers['graph_launches']})")
+    for k in (rl.R1, rl.R2, rl.R3, rl.R4):
+        if launches[k.name] == 0:
+            raise AssertionError(f"{k.name} not launched by the roofline "
+                                 "tool")
+    return numbers, launches
+
+
+def breakdown_phase(torch, dev, launch_us):
+    """The breakdown tool (``meshrecon_torch.tools.fused_breakdown``) at
+    640x480, K=3, B=1 (its default) and B=4 (the CLI's batch), its bound
+    taking ``launch_us`` a launch; its ``all`` stage against
+    ``FusedMainUpdate`` on the same inputs within parity.py's bounds."""
+    from meshrecon_torch import parity, problems, state
+    from meshrecon_torch.pipeline.fused import FusedMainUpdate
+    from meshrecon_torch.tools import fused_breakdown
+
+    for b in (1, B):
+        t0 = time.perf_counter()
+        out = fused_breakdown.main([str(H), str(W), str(K), "10", str(b),
+                                    "--launch-us", repr(launch_us)])
+        args = state.from_numpy(problems.fused_problem(b, K, H, W, seed=0),
+                                dev)
+        ref = FusedMainUpdate(H, W).to(dev)(*args)
+        metrics = parity.check_slice(state.to_numpy(out["all"]),
+                                     state.to_numpy(ref))
+        print(f"breakdown B={b}: {time.perf_counter() - t0:.1f} s; all "
+              f"stage vs FusedMainUpdate (meshrecon_torch/parity.py "
+              "bounds): " + ", ".join(f"{k} {v:.3e}"
+                                     for k, v in metrics.items()))
 
 
 def k3b_phase(torch, dev, res):
@@ -893,6 +994,7 @@ def main() -> int:
     from meshrecon_torch.kernels import all_kernels, library
     from meshrecon_torch.meshing import native
     from meshrecon_torch.raster import binned
+    from meshrecon_torch.tools import roofline
     # the wrappers own the Kernel objects: import them before listing
     import meshrecon_torch.pipeline.fused  # noqa: F401
     import meshrecon_torch.pipeline.reconstruct  # noqa: F401
@@ -922,6 +1024,8 @@ def main() -> int:
     kernel_phases(torch, dev, res, state.from_numpy(args_np, dev))
     raster_launches = raster_phase(torch, dev, res,
                                    state.from_numpy(args_np, dev))
+    roof, roof_launches = roofline_phase(torch, dev, res)
+    breakdown_phase(torch, dev, roof["launch_graph_us"])
     k3b_phase(torch, dev, res)
     k6_phase(torch, dev, res)
     torch.cuda.synchronize()
@@ -954,9 +1058,12 @@ def main() -> int:
     path_launches[K6.name] = solver_launches[K6.name]
     for k in (binned.K5A, binned.K5B):
         path_launches[k.name] = raster_launches[k.name]
+    for k in (roofline.R1, roofline.R2, roofline.R3, roofline.R4):
+        path_launches[k.name] = roof_launches[k.name]
     print("launches: K1, K2, K3, K3c, K4 from the default reconstruction, "
           "K3b from the rewarp reconstruction, K6 from the solver check, "
-          "K5a and K5b from the raster sweep tool")
+          "K5a and K5b from the raster sweep tool, R1-R4 from the roofline "
+          "tool (R3 and R4 with its graph replays)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"device check")
     kernels = [dict(

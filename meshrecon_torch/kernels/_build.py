@@ -50,6 +50,9 @@ _SIGNATURES = {
     "mr_sample_bilinear_masked": "PPPPP" + "III" + "P",
     "mr_hs_sweep": "PPPP" + "PPPP" + "PPPPPP" + "FFF" + "IIII" + "P",
     "mr_hs_jacobi_fields": "PPPP" + "PPPP" + "F" + "IIII" + "P",
+    "mr_roofline_copy": "PP" + "I" + "P",
+    "mr_roofline_fma": "PP" + "II" + "P",
+    "mr_roofline_tiny": "PP" + "II" + "P",
 }
 _CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
 
@@ -143,7 +146,9 @@ class Kernel:
     """One hand-written kernel: its C entry point and its launch count.
 
     ``launches`` rises by one for each launch this object makes and for
-    nothing else; callers reset it by assignment.
+    nothing else; callers reset it by assignment. A launch recorded into a
+    CUDA graph under capture runs nothing and is not counted: whoever
+    replays the graph counts its replays.
     """
 
     def __init__(self, name: str, entry: str, source: str, replaces: str):
@@ -165,11 +170,13 @@ class Kernel:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             code = getattr(lib.cdll, self.entry)(*cargs, stream)
+            capturing = torch.cuda.is_current_stream_capturing()
         if code != 0:
             text = lib.cdll.mr_error_string(code).decode()
             raise RuntimeError(f"{self.name} ({self.entry}): CUDA error "
                                f"{code}: {text}")
-        self.launches += 1
+        if not capturing:
+            self.launches += 1
 
 
 def all_kernels() -> list[Kernel]:

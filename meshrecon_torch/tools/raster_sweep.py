@@ -28,8 +28,6 @@ clock, and no kernel or device memory is measured.
 from __future__ import annotations
 
 import argparse
-import subprocess
-import time
 
 import numpy as np
 import torch
@@ -38,6 +36,7 @@ from meshrecon_torch import problems
 from meshrecon_torch.pipeline.config import resolve_device
 from meshrecon_torch.raster import binned
 from meshrecon_torch.raster.rasterizer import render_depth
+from meshrecon_torch.utils.profiling import best_ms, device_line
 
 
 def make_soup(t: int) -> np.ndarray:
@@ -53,26 +52,6 @@ def make_soup(t: int) -> np.ndarray:
     return s[binned.morton_order(s)]
 
 
-def _mean_ms(fn, reps: int, device) -> float:
-    """Mean ms of ``fn`` over ``reps`` calls after one warm-up: CUDA events
-    on the card, the host clock on the CPU."""
-    fn()
-    if device.type == "cpu":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
-    torch.cuda.synchronize(device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / reps
-
-
 def _peak_mb(fn, device):
     """Peak device memory of one call of ``fn`` above what was allocated
     before it, in MB; None on the CPU."""
@@ -84,18 +63,6 @@ def _peak_mb(fn, device):
     fn()
     torch.cuda.synchronize(device)
     return (torch.cuda.max_memory_allocated(device) - base) / 1e6
-
-
-def _device_line(device) -> str:
-    if device.type == "cpu":
-        return "device: cpu (host-clock times; no kernel runs)"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    limit = (smi.stdout.strip().splitlines() or ["not read"])[
-        device.index or 0] if smi.returncode == 0 else "not read"
-    return (f"device: {torch.cuda.get_device_name(device)} (nvidia-smi: "
-            f"{limit.strip()})")
 
 
 def _fmt(v, width: int, digits: int) -> str:
@@ -126,7 +93,7 @@ def main(argv=None) -> list[dict]:
     device = resolve_device(args.device)
     h, w = args.height, args.width
     chunks = [int(c) for c in args.chunks.split(",")]
-    print(_device_line(device), flush=True)
+    print(device_line(device), flush=True)
 
     prob = problems.fused_problem(4, 3, h, w, seed=0)
     cams16 = torch.from_numpy(np.concatenate(
@@ -180,9 +147,9 @@ def main(argv=None) -> list[dict]:
                 row = dict(
                     case=name, tris=int(valid_np.sum()), variant=label,
                     cameras=cams.shape[0], chunk=chunk,
-                    wrapper_ms=_mean_ms(run, args.reps, device),
-                    binning_ms=_mean_ms(binning, args.reps, device),
-                    kernel_ms=None if device.type == "cpu" else _mean_ms(
+                    wrapper_ms=best_ms(run, args.reps, device),
+                    binning_ms=best_ms(binning, args.reps, device),
+                    kernel_ms=None if device.type == "cpu" else best_ms(
                         lambda: binned.raster_binned(kernel, bins),
                         args.reps, device),
                     peak_mb=_peak_mb(run, device),
@@ -197,7 +164,7 @@ def main(argv=None) -> list[dict]:
         if name == "bench578":
             row = dict(case=name, tris=int(valid_np.sum()), variant="plain",
                        cameras=1, chunk=None,
-                       wrapper_ms=_mean_ms(lambda: render_depth(
+                       wrapper_ms=best_ms(lambda: render_depth(
                            cam1, soup, valid, h, w), args.reps, device),
                        binning_ms=None, kernel_ms=None, peak_mb=None,
                        list_entries=None)

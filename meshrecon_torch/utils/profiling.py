@@ -1,4 +1,5 @@
-"""Per-stage wall timers (port of meshrecon/utils/profiling.StageTimer).
+"""Per-stage wall timers (port of meshrecon/utils/profiling.StageTimer),
+and the measurement helpers of the port's tools.
 
 A stage's time ends when the work that produced its value is done: for a
 value that holds a CUDA tensor the timer calls ``torch.cuda.synchronize``
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import subprocess
 import time
 from collections import defaultdict
 
@@ -94,3 +96,42 @@ def device_busy(trace: dict) -> tuple[float, int]:
             busy_us += stop - max(start, end)
             end = stop
     return busy_us / 1e6, len(spans)
+
+
+def best_ms(fn, reps: int, device, best_of: int = 1) -> float:
+    """Milliseconds per call of ``fn``: the best of ``best_of`` passes of
+    ``reps`` calls after one warm-up call; CUDA events on the card, the host
+    clock on the CPU."""
+    fn()
+    best = math.inf
+    for _ in range(best_of):
+        if device.type == "cpu":
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            best = min(best, (time.perf_counter() - t0) * 1e3 / reps)
+            continue
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def device_line(device) -> str:
+    """The device a tool measures on: the card's name with nvidia-smi's
+    name and power limit, or the CPU with what its numbers are."""
+    if device.type == "cpu":
+        return "device: cpu (host-clock times; no kernel runs)"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    limit = (smi.stdout.strip().splitlines() or ["not read"])[
+        device.index or 0] if smi.returncode == 0 else "not read"
+    return (f"device: {torch.cuda.get_device_name(device)} (nvidia-smi: "
+            f"{limit.strip()})")

@@ -162,7 +162,9 @@ def test_port_never_imports_jax():
                "meshrecon_torch.meshing.native",
                "meshrecon_torch.points.filter",
                "meshrecon_torch.utils.profiling",
-               "meshrecon_torch.tools.raster_sweep")
+               "meshrecon_torch.tools.raster_sweep",
+               "meshrecon_torch.tools.roofline",
+               "meshrecon_torch.tools.fused_breakdown")
     code = (f"import sys, {', '.join(modules)}; "
             "sys.exit('jax' in sys.modules or 'meshrecon' in sys.modules)")
     root = Path(__file__).resolve().parent.parent

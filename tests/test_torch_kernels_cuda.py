@@ -16,9 +16,12 @@ others; K4 1e-4 px (the kernel folds the data term into cc and 1/denom as
 pallas_jacobi.py does, the plain version does not); K3b 1e-4 on a 0..255
 scale (the twin's weights and tap order, -fmad=false); K6 1e-3 px, the
 JAX package's bound for hs_jacobi (it repeats hs_jacobi_plain's
-arithmetic); K2's bilinear shadow mode 1e-4. The sweep update, the flow
-update's variants and the reconstruction on the card against their plain
-runs on the CPU.
+arithmetic); K2's bilinear shadow mode 1e-4. The roofline probes: R1, R3
+and R4 bitwise (one float32 operation each); R2 1e-6 relative (its plain
+version's float64 sum can round before the float32 rounding). The sweep
+update, the flow update's variants and the reconstruction on the card
+against their plain runs on the CPU; the roofline and breakdown tools on
+the card.
 """
 
 import numpy as np
@@ -33,6 +36,7 @@ from meshrecon_torch.pipeline.fused import (fused_main_update_batched,
                                             fused_sweep_update_batched)
 from meshrecon_torch.raster import binned, rasterizer
 from meshrecon_torch.raster.fragment import bilinear_sample, nearest_sample
+from meshrecon_torch.tools import roofline
 
 pytestmark = pytest.mark.cuda
 
@@ -436,3 +440,98 @@ def test_cli_variants_on_gpu(dev, tmp_path, flags, kernels):
     for name in kernels:
         k = getattr(tile_warp, name, None) or getattr(jacobi, name)
         assert launches[k.name] > 0, name
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (4096, 4096), (3, 1001)])
+def test_roofline_copy(dev, shape):
+    """R1, with a tail of n % 4 elements past the float4 loads."""
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(8)).to(dev)
+    before = roofline.R1.launches
+    out = roofline.copy_scale(x)
+    assert roofline.R1.launches == before + 1
+    assert torch.equal(out, roofline.copy_scale_plain(x))
+
+
+@pytest.mark.parametrize("shape,inner", [((256, 512), 2048), ((5, 77), 3)])
+def test_roofline_fma(dev, shape, inner):
+    g = torch.Generator().manual_seed(9)
+    x = (0.999 + 0.002 * torch.rand(shape, generator=g)).to(dev)
+    before = roofline.R2.launches
+    out = roofline.fma_chain(x, inner)
+    assert roofline.R2.launches == before + 1
+    ref = roofline.fma_chain_plain(x, inner)
+    assert ((out - ref).abs() / ref.abs()).max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("rows,nblocks", [(8, 1), (512, 1), (512, 64)])
+def test_roofline_tiny(dev, rows, nblocks):
+    """R3 (one CTA) and R4 (a grid of CTAs), each on its own counter."""
+    x = torch.randn((rows, 128), generator=torch.Generator().manual_seed(
+        10)).to(dev)
+    counts = (roofline.R3.launches, roofline.R4.launches)
+    if nblocks == 1 and rows == 8:
+        out = roofline.add_one(x)
+        assert (roofline.R3.launches, roofline.R4.launches) == (
+            counts[0] + 1, counts[1])
+    else:
+        out = roofline.add_one_grid(x, nblocks)
+        assert (roofline.R3.launches, roofline.R4.launches) == (
+            counts[0], counts[1] + 1)
+    assert torch.equal(out, roofline.add_one_plain(x))
+
+
+def test_roofline_wrappers_refuse(dev):
+    x = torch.zeros((8, 128), device=dev)
+    with pytest.raises(ValueError):
+        roofline.copy_scale(x.view(-1)[1:1025])  # not 16-byte aligned
+    with pytest.raises(ValueError):
+        roofline.copy_scale(x, out=torch.empty((8, 128)))  # CPU output
+    with pytest.raises(ValueError):
+        roofline.add_one_grid(x, 3)
+    with pytest.raises(ValueError):
+        roofline.fma_chain(x.double())
+
+
+def test_graph_capture_is_not_counted(dev):
+    """A launch recorded under CUDA-graph capture runs nothing and is not
+    counted; the replay computes."""
+    x = torch.zeros((8, 128), device=dev)
+    out = torch.empty_like(x)
+    roofline.add_one(x, out=out)
+    before = roofline.R3.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        roofline.add_one(x, out=out)
+    assert roofline.R3.launches == before
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.ones_like(x))
+
+
+def test_roofline_tool_on_gpu(dev):
+    out = roofline.main([])
+    assert out["copy_gbs"] > 100 and out["fma_gflops"] > 100
+    assert out["mm_tflops"] > 10
+    assert 0 < out["launch_graph_us"] and 0 < out["launch_eager_us"]
+    assert out["mm_eager_ms"] > 0 and out["fma_eager_ms"] > 0
+    graphed = out["graph_launches"]
+    assert graphed[roofline.R1.name] == graphed[roofline.R2.name] == 4 * 100
+    assert graphed[roofline.R3.name] == 4 * 5000
+    assert graphed[roofline.R4.name] == 2 * 4 * 2000
+
+
+def test_fused_breakdown_on_gpu(dev):
+    from meshrecon_torch.tools import fused_breakdown as fb
+
+    out = fb.main(["96", "128", "2", "2", "2", "--launch-us", "2.0"])
+    rows = out["stages"]
+    assert [r["stage"] for r in rows] == list(fb.STAGES)
+    assert all(r["d_events"] is not None for r in rows)
+    assert rows[0]["d_events"] > 0 and rows[-1]["ms"] > 0
+    ref = fused_main_update_batched(*state.from_numpy(
+        problems.fused_problem(2, 2, 96, 128, seed=0), dev), 96, 128)
+    parity.check_slice(state.to_numpy(out["all"]),
+                       state.to_numpy(ref))
+    cost = fb.main(["96", "128", "2", "1", "2", "--cost-only"])
+    assert cost["stages"][0]["launches"] == {binned.K1.name: 1}
