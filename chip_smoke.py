@@ -19,25 +19,35 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (``grid_sample``; a yardstick only, never called by the port). K1-K4;
    K2's bilinear shadow mode; K3b (the bicubic re-warp) at 12x480x640 and
    at the K=8 bucket 4x8x480x640; K6 (Jacobi sweeps given the fields) at
-   12x480x640, 60 sweeps. A missed bound raises.
-   After K1: the raster phase. K5 (the two-level raster, one kernel for
+   12x480x640, 60 sweeps. A missed bound raises. K3 at both pyramid sizes
+   also gives its device time and ``grid_sample``'s from a CUDA graph of
+   100 calls beside the eager times.
+   After the kernel phases: the binning phase. K1's binning is two
+   kernels: SETUP (the triangle setup) bitwise against ``pack_records``
+   (NaN-aware) and BIN (the tile lists) against ``bin_chunks`` at chunks 8
+   and 16 and ``bin_superchunks`` at chunk 8 (counts and list prefixes
+   equal), at 16 cameras on the 16,384- and 65,536-triangle spheres.
+   Then the raster phase. K5 (the two-level raster, one kernel for
    the TPU's K5a and K5b) bitwise against ``render_depth`` through
    ``render_depth_binned(two_level=True)`` at one camera (K5a) and
    ``render_depth_binned_batched`` at 4 and 16 cameras (K5b), on the
    16,384- and 65,536-triangle spheres and the fused problem's soup at
-   640x480, with the binning's and the kernel's ms apart; K1's binning /
-   kernel split and both binnings' peak memory at 16 cameras; then the
-   raster sweep tool (``meshrecon_torch.tools.raster_sweep``) at its
-   defaults with chunks 8 and 16.
+   640x480, with the binning's and the kernel's ms apart; K1's wrapper as
+   setup + bin + kernel alone and the peak memory of both binnings and of
+   the plain one at 16 cameras; then the raster sweep tool
+   (``meshrecon_torch.tools.raster_sweep``) at its defaults with chunks 8
+   and 16.
    Then the roofline phase: R1-R4 (the roofline probes) against their
    plain versions at the roofline tool's shapes (R1 4096x4096, R2 one
    256x512 block of 2,048 FMAs, R3 8x128 in one CTA, R4 512x128 in 64 and
    in 1 CTAs; R1, R3, R4 bitwise, R2 1e-6 relative), with ``torch.mul`` /
-   ``torch.add`` as the library yardsticks; then the roofline tool
+   ``torch.add`` as the library yardsticks (R3's eager us a call printed
+   beside ``torch.add``'s); then the roofline tool
    (``meshrecon_torch.tools.roofline``) in-process, counters reset just
    before. Then the breakdown phase: the breakdown tool
    (``meshrecon_torch.tools.fused_breakdown``) at 640x480, K=3, B=1 and
-   B=4, its bound taking the tool's graph launch floor; its ``all`` stage
+   B=4, its bound taking the tool's graph launch floor; its ``depth0``
+   stage must fire at most 20 device events; its ``all`` stage
    against ``FusedMainUpdate`` on the same inputs within
    meshrecon_torch/parity.py's bounds.
 4. The solver check (the multigrid solver's path on the card): at
@@ -59,7 +69,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    fields, so that off-frame and behind-camera pixels are invalid.
 7. The sweep update (``FusedSweepUpdate``, 64 depths) on those cameras,
    synthetic frames and a 16,384-triangle sphere fitted to the scene's
-   bundles: K1, K2 and K3c must launch, the valid share must pass a floor,
+   bundles: SETUP, BIN, K1, K2 and K3c must launch, the valid share must
+   pass a floor,
    and batch item 0 must agree with the port's plain CPU run.
 8. End to end, three times: ``meshrecon_torch.cli.main`` on koule-tr at
    the defaults (640x480, -n 2, hybrid, 64 depths, Poisson grid 128, trim
@@ -70,9 +81,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 9. Prints one JSON line of per-kernel results, then the device line
    ``{"ok": true, "device": {...}}`` last. Each kernel's ``launches`` is
    the count of the path it serves, read just after that path's run with
-   the counters reset just before: K1, K2, K3, K3c and K4 from the default
-   reconstruction, K3b from the rewarp reconstruction, K6 from the solver
-   check, K5a and K5b from the raster sweep tool's run, R1-R4 from the
+   the counters reset just before: SETUP, BIN, K1, K2, K3, K3c and K4 from
+   the default reconstruction, K3b from the rewarp reconstruction, K6 from
+   the solver check, K5a and K5b from the raster sweep tool's run, R1-R4
+   from the
    roofline tool's run (R3's and R4's eager launches plus its CUDA-graph
    replays x the launches captured, since a replay does not pass through
    ``Kernel.launch``).
@@ -96,6 +108,8 @@ B, K = 4, 3
 UPDATES = 3
 VARIANT_UPDATES = 2
 SEED = 0
+GRAPH_CALLS = 100  # calls in the CUDA graph that gives a device time
+DEPTH0_EVENTS = 20  # the breakdown's depth0: cameras, binning, K1
 
 TRACK = "tracks/koule-tr.yaml"
 SWEEP_K = 4
@@ -143,6 +157,23 @@ def _cuda_ms(torch, fn, reps, warm_up=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(torch, fn, calls=None, replays=5):
+    """Milliseconds a call on the device: ``calls`` calls of ``fn``
+    captured once in a CUDA graph (after an eager warm-up), the mean over
+    ``replays`` replays after one untimed replay."""
+    calls = calls or GRAPH_CALLS
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    ms = _cuda_ms(torch, graph.replay, replays, warm_up=False)
+    del graph
+    return ms / calls
 
 
 class Results:
@@ -338,6 +369,14 @@ def kernel_phases(torch, dev, res, slice_args):
         lib_in = img[:, None]
         lib_ms = _cuda_ms(torch, lambda: _library_sample(
             torch, lib_in, grid, "bilinear"), 50)
+        graph_ms = _graph_ms(torch, lambda: tile_warp.tile_warp_flow_batched(
+            img, u, v))
+        lib_graph_ms = _graph_ms(torch, lambda: _library_sample(
+            torch, lib_in, grid, "bilinear"))
+        print(f"warp_bilinear [{n}x{h}x{w}]: eager {ms:.4f} ms a call, "
+              f"device {graph_ms:.4f} ms (CUDA graph of {GRAPH_CALLS} "
+              f"calls); grid_sample eager {lib_ms:.4f} ms, device "
+              f"{lib_graph_ms:.4f} ms")
         # bytes: image, u, v in, one float out; ~22 operations a pixel
         res.add(tile_warp.K3, f"{n}x{h}x{w}", err, 1e-4, ms, plain_ms,
                 work=(16 * npx, fb.K3_OPS * npx), library_ms=lib_ms)
@@ -373,6 +412,96 @@ def _peak_mb(torch, fn):
     fn()
     torch.cuda.synchronize()
     return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def _bits_err(torch, a, b):
+    """Max |a - b|, NaN where both are NaN counting 0; inf when the bits
+    differ anywhere else (a signed zero, a NaN on one side)."""
+    both_nan = a.isnan() & b.isnan()
+    if not bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | both_nan).all()):
+        diff = torch.where(both_nan, 0.0, (a - b).abs())
+        return max(diff.nan_to_num(nan=float("inf")).max().item(), 1e-30)
+    return 0.0
+
+
+def binning_phase(torch, dev, res, slice_args):
+    """The binning's two kernels against their plain versions at the flow
+    update's 16 cameras, on the 16,384- and 65,536-triangle spheres at
+    640x480: SETUP's records and chunk boxes against ``pack_records`` bit
+    for bit (NaN-aware), and BIN's counts and list prefixes against
+    ``bin_chunks`` at chunks 8 and 16 and ``bin_superchunks`` (8 chunks a
+    superchunk) at chunk 8, fed the plain version's chunk boxes."""
+    from meshrecon_torch import problems, state
+    from meshrecon_torch.raster import binned
+    from meshrecon_torch.tools import fused_breakdown as fb
+
+    cams = torch.cat([slice_args[2][:, None], slice_args[4]], 1).reshape(
+        B * (K + 1), 4, 4)
+    ncam = cams.shape[0]
+    ntiles = -(-H // binned.TILE) * -(-W // binned.TILE)
+    for nt, nph in ((64, 128), (128, 256)):
+        soup, valid = (torch.from_numpy(a).to(dev) for a in
+                       state.pack_soup(problems.sphere_soup(nt, nph)))
+        label = f"{ncam}x{H}x{W}, {2 * nt * nph} tris"
+        for chunk, supers in ((8, 1), (16, 1), (8, binned.SUPERS)):
+            group = chunk * supers
+            packed, cbox = binned.setup_records(cams, soup, valid, group,
+                                                chunk)
+            plain = binned.pack_records(cams, soup, valid, group)
+            boxes = plain[:, 12], plain[:, 13], plain[:, 14], plain[:, 15]
+            plain_cbox = torch.stack(binned._group_boxes(*boxes, chunk),
+                                     1).contiguous()
+            torch.cuda.synchronize()
+            if (chunk, supers) == (8, 1):
+                err = max(_bits_err(torch, packed, plain),
+                          _bits_err(torch, cbox, plain_cbox))
+                ms = _cuda_ms(torch, lambda: binned.setup_records(
+                    cams, soup, valid, group, chunk), 20)
+                plain_ms = _cuda_ms(torch, lambda: binned.pack_records(
+                    cams, soup, valid, group), 5)
+                # bytes: cameras, soup, validity in; records and chunk boxes
+                # out; operations: ~360 a (camera, triangle), float32 and
+                # float64 alike (fb.SETUP_OPS)
+                res.add(binned.SETUP, label, err, 0.0, ms, plain_ms,
+                        work=(ncam * 64 + soup.numel() * 4 + valid.numel()
+                              + (packed.numel() + cbox.numel()) * 4,
+                              fb.SETUP_OPS * ncam * soup.shape[0]))
+            del packed, cbox, plain
+
+            def plain_bin():
+                if supers == 1:
+                    return binned.bin_chunks(*boxes, H, W, chunk=chunk)
+                return binned.bin_superchunks(*boxes, H, W, chunk=chunk,
+                                              supers=supers)[1:]
+
+            lists, counts = binned.tile_lists(plain_cbox, H, W, supers)
+            want_lists, want_counts = plain_bin()
+            torch.cuda.synchronize()
+            live = (torch.arange(lists.shape[-1], device=dev)
+                    < want_counts[..., None])
+            same = (torch.equal(counts, want_counts) and torch.equal(
+                torch.where(live, lists, 0), torch.where(live, want_lists,
+                                                         0)))
+            entries = int(want_counts.sum().item())
+            del lists, live, want_lists
+            ms = _cuda_ms(torch, lambda: binned.tile_lists(
+                plain_cbox, H, W, supers), 20)
+            plain_ms = _cuda_ms(torch, plain_bin, 3)
+            # bytes: chunk boxes in, the listed ids and the counts out;
+            # operations: the four comparisons of each listed group (the
+            # least any binning does; the rest is skipped by unions)
+            res.add(binned.BIN, f"{label}, chunk {chunk}"
+                    + (f", {supers} chunks a superchunk" if supers > 1
+                       else ""),
+                    0.0 if same else float("inf"), 0.0, ms, plain_ms,
+                    work=(plain_cbox.numel() * 4 + (entries + ncam * ntiles)
+                          * 4, 4 * entries))
+            slots = want_counts.numel() * (plain_cbox.shape[-1] // supers)
+            print(f"raster_bin [{label}, chunk {chunk}, supers {supers}]: "
+                  f"counts and list prefixes equal: {same}; {entries} list "
+                  f"entries of {slots}")
+            del plain_cbox
 
 
 def raster_phase(torch, dev, res, slice_args):
@@ -431,25 +560,35 @@ def raster_phase(torch, dev, res, slice_args):
             res.add(kernel, label, err, 0.0, ms, plain_ms,
                     work=_raster_work(ncam, soup, valid, covered))
 
-        # K1 at 16 cameras: the binning against the kernel, and the peak
-        # memory of each binning
+        # K1 at 16 cameras: the wrapper as setup + bin + kernel alone, and
+        # the peak memory of each binning
         cams = cams16
         bins = binned.bin_soup(cams, soup, valid, H, W)
         k1_ms = _cuda_ms(torch, lambda: binned.render_depth_binned(
             cams, soup, valid, H, W), 10)
         k1_bin = _cuda_ms(torch, lambda: binned.bin_soup(
             cams, soup, valid, H, W), 10)
+        k1_setup = _cuda_ms(torch, lambda: binned.setup_records(
+            cams, soup, valid), 10)
+        cbox = binned.setup_records(cams, soup, valid)[1]
+        k1_lists = _cuda_ms(torch, lambda: binned.tile_lists(cbox, H, W), 10)
         k1_kern = _cuda_ms(torch, lambda: binned.raster_binned(binned.K1,
                                                                bins), 10)
-        del bins
+        del bins, cbox
         mem1 = _peak_mb(torch, lambda: binned.bin_soup(cams, soup, valid, H,
                                                        W))
         mem2 = _peak_mb(torch, lambda: binned.bin_soup(
             cams, soup, valid, H, W, two_level=True))
+        mem_plain = _peak_mb(torch, lambda: binned.bin_chunks(
+            *binned.pack_records(cams, soup, valid)[:, 12:16].unbind(1), H,
+            W))
         print(f"raster_tiles [{len(cams)}x{H}x{W}, {soup_label}]: wrapper "
-              f"{k1_ms:.4f} ms = binning {k1_bin:.4f} ms + kernel alone "
-              f"{k1_kern:.4f} ms; binning peak memory: one level (K1) "
-              f"{mem1:.1f} MB, two levels (K5b) {mem2:.1f} MB")
+              f"{k1_ms:.4f} ms = setup {k1_setup:.4f} ms + bin "
+              f"{k1_lists:.4f} ms + kernel alone {k1_kern:.4f} ms (the "
+              f"binning in one call {k1_bin:.4f} ms); binning peak memory: "
+              f"one level (K1) {mem1:.1f} MB, two levels (K5b) {mem2:.1f} "
+              f"MB, the plain one level (pack_records + bin_chunks) "
+              f"{mem_plain:.1f} MB")
 
     for k in all_kernels():
         k.launches = 0
@@ -472,7 +611,7 @@ def roofline_phase(torch, dev, res):
     (``meshrecon_torch.tools.roofline``) in-process, its launch counts reset
     just before. Returns (the tool's numbers, its launches); R3's and R4's
     launches add the tool's CUDA-graph replays x the launches captured."""
-    from meshrecon_torch.kernels import all_kernels
+    from meshrecon_torch.kernels import all_kernels, library
     from meshrecon_torch.tools import roofline as rl
 
     gen = torch.Generator().manual_seed(SEED + 4)
@@ -518,6 +657,26 @@ def roofline_phase(torch, dev, res):
         res.add(kernel, f"{rows}x{rl.TINY_COLS}, {nblocks} CTA(s)", err, 0.0,
                 ms, plain_ms, work=(8 * c.numel(), c.numel()),
                 library_ms=lib_ms)
+        if kernel is rl.R3:
+            print(f"R3 eager: {ms * 1e3:.2f} us a Kernel.launch call "
+                  f"(add_one, 1,000 calls), torch.add {lib_ms * 1e3:.2f} us "
+                  "a call")
+
+    # R3's launch path, split: host-bound eager loops on one (8, 128) pair
+    c = torch.zeros((rl.TINY_ROWS, rl.TINY_COLS), device=dev)
+    o = torch.empty_like(c)
+    entry = getattr(library().cdll, rl.R3.entry)
+    args = (c.data_ptr(), o.data_ptr(), rl.TINY_ROWS, 1,
+            torch.cuda.current_stream(dev).cuda_stream)
+    split = {"C entry alone (ctypes; the CUDA launch inside)":
+             lambda: entry(*args),
+             "Kernel.launch": lambda: rl.R3.launch(c, o, rl.TINY_ROWS, 1),
+             "add_one (the wrapper's checks, then Kernel.launch)":
+             lambda: rl.add_one(c, out=o),
+             "torch.add(out=)": lambda: torch.add(c, 1.0, out=o)}
+    print("R3 launch path, us a call (5,000 eager calls each): " + ", ".join(
+        f"{name} {_cuda_ms(torch, fn, 5000) * 1e3:.2f}"
+        for name, fn in split.items()))
 
     for k in all_kernels():
         k.launches = 0
@@ -550,6 +709,13 @@ def breakdown_phase(torch, dev, launch_us):
         t0 = time.perf_counter()
         out = fused_breakdown.main([str(H), str(W), str(K), "10", str(b),
                                     "--launch-us", repr(launch_us)])
+        depth0 = out["stages"][0]
+        print(f"breakdown B={b}: depth0 {depth0['d_ms']:.4f} ms, "
+              f"{depth0['d_events']} device events (bound 20: the binning "
+              "is two kernels)")
+        if not depth0["d_events"] <= DEPTH0_EVENTS:
+            raise AssertionError(f"depth0 fires {depth0['d_events']} device "
+                                 f"events, above {DEPTH0_EVENTS}")
         args = state.from_numpy(problems.fused_problem(b, K, H, W, seed=0),
                                 dev)
         ref = FusedMainUpdate(H, W).to(dev)(*args)
@@ -872,7 +1038,8 @@ def run_sweep(torch, dev, args_np):
 
     args = state.from_numpy(args_np, dev)
     model = FusedSweepUpdate(H, W, num_depths=SWEEP_DEPTHS)
-    kernels = (binned.K1, tile_warp.K2, tile_warp.K3C)
+    kernels = (binned.SETUP, binned.BIN, binned.K1, tile_warp.K2,
+               tile_warp.K3C)
     times = []
     for _ in range(2):
         for k in kernels:
@@ -1018,10 +1185,12 @@ def main() -> int:
     K1, K2, K3, K3B, K3C, K4, K6 = (
         binned.K1, tile_warp.K2, tile_warp.K3, tile_warp.K3B, tile_warp.K3C,
         jacobi.K4, jacobi.K6)
+    SETUP, BIN = binned.SETUP, binned.BIN  # K1's binning
     args_np = list(problems.fused_problem(B, K, H, W, seed=SEED))
     args_np[0], args_np[1] = state.pack_soup(problems.sphere_soup(64, 128))
     res = Results()
     kernel_phases(torch, dev, res, state.from_numpy(args_np, dev))
+    binning_phase(torch, dev, res, state.from_numpy(args_np, dev))
     raster_launches = raster_phase(torch, dev, res,
                                    state.from_numpy(args_np, dev))
     roof, roof_launches = roofline_phase(torch, dev, res)
@@ -1031,15 +1200,16 @@ def main() -> int:
     torch.cuda.synchronize()
     solver_launches = solver_check(torch, dev)
 
+    render = (SETUP, BIN, K1)
     run_slice(torch, dev, args_np, "flow update", UPDATES,
-              (K1, K2, K3, K4))
+              (*render, K2, K3, K4))
     for label, path, options in (
-            ("flow update rewarp", (K1, K2, K3, K4, K3B),
+            ("flow update rewarp", (*render, K2, K3, K4, K3B),
              dict(variance="rewarp")),
-            ("flow update farneback", (K1, K2, K3, K3B),
+            ("flow update farneback", (*render, K2, K3, K3B),
              dict(use_farneback=True)),
-            ("flow update mg", (K1, K2, K3), dict(flow_solver="mg")),
-            ("flow update shadow bilinear", (K1, K2, K3, K4),
+            ("flow update mg", (*render, K2, K3), dict(flow_solver="mg")),
+            ("flow update shadow bilinear", (*render, K2, K3, K4),
              dict(shadow_sample="bilinear"))):
         run_slice(torch, dev, args_np, label, VARIANT_UPDATES, path,
                   **options)
@@ -1047,20 +1217,23 @@ def main() -> int:
     sweep_args = sweep_problem(torch, dev)
     k3c_phase(torch, dev, res, state.from_numpy(sweep_args, dev))
     run_sweep(torch, dev, sweep_args)
-    default = run_e2e(torch, dev, "default", [], (K1, K2, K3, K3C, K4))
+    default = run_e2e(torch, dev, "default", [],
+                      (*render, K2, K3, K3C, K4))
     rewarp = run_e2e(torch, dev, "rewarp", ["--variance-mode", "rewarp"],
-                     (K1, K2, K3, K3C, K4, K3B))
-    run_e2e(torch, dev, "farneback", ["-f"], (K1, K2, K3, K3C, K3B))
+                     (*render, K2, K3, K3C, K4, K3B))
+    run_e2e(torch, dev, "farneback", ["-f"], (*render, K2, K3, K3C, K3B))
 
     # each kernel's launches on the path it serves
-    path_launches = {k.name: default[k.name] for k in (K1, K2, K3, K3C, K4)}
+    path_launches = {k.name: default[k.name]
+                     for k in (*render, K2, K3, K3C, K4)}
     path_launches[K3B.name] = rewarp[K3B.name]
     path_launches[K6.name] = solver_launches[K6.name]
     for k in (binned.K5A, binned.K5B):
         path_launches[k.name] = raster_launches[k.name]
     for k in (roofline.R1, roofline.R2, roofline.R3, roofline.R4):
         path_launches[k.name] = roof_launches[k.name]
-    print("launches: K1, K2, K3, K3c, K4 from the default reconstruction, "
+    print("launches: SETUP, BIN, K1, K2, K3, K3c, K4 from the default "
+          "reconstruction, "
           "K3b from the rewarp reconstruction, K6 from the solver check, "
           "K5a and K5b from the raster sweep tool, R1-R4 from the roofline "
           "tool (R3 and R4 with its graph replays)")

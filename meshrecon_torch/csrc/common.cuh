@@ -12,6 +12,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #define MR_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -44,15 +45,19 @@ __device__ __forceinline__ MrTaps mr_bilinear_taps(float col, float row,
   return t;
 }
 
-__device__ __forceinline__ float mr_bilinear_apply(
-    const float* __restrict__ img, const MrTaps& t, int w) {
-  const float v00 = img[t.r0 * w + t.c0];
-  const float v01 = img[t.r0 * w + t.c1];
-  const float v10 = img[t.r1 * w + t.c0];
-  const float v11 = img[t.r1 * w + t.c1];
-  const float fr = t.fr, fc = t.fc;
+// The plain version's weighted sum of the four taps.
+__device__ __forceinline__ float mr_bilinear_mix(float v00, float v01,
+                                                 float v10, float v11,
+                                                 float fr, float fc) {
   return v00 * (1.0f - fr) * (1.0f - fc) + v01 * (1.0f - fr) * fc +
          v10 * fr * (1.0f - fc) + v11 * fr * fc;
+}
+
+__device__ __forceinline__ float mr_bilinear_apply(
+    const float* __restrict__ img, const MrTaps& t, int w) {
+  return mr_bilinear_mix(img[t.r0 * w + t.c0], img[t.r0 * w + t.c1],
+                         img[t.r1 * w + t.c0], img[t.r1 * w + t.c1], t.fr,
+                         t.fc);
 }
 
 __device__ __forceinline__ float mr_bilinear(const float* __restrict__ img,

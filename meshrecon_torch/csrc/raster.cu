@@ -15,8 +15,9 @@
 // tiles of those triangles times 256 pixels. Device-memory traffic is small
 // (16 floats per staged triangle per tile, one float out per pixel).
 //
-// Design: the torch side (raster/binned.py) bins chunks of `chunk` records
-// (8, 16, 32 or 64; a template argument) onto tiles. A CTA stages 256
+// Design: the binning (raster/binned.py::bin_soup: on the card the SETUP and
+// BIN kernels of csrc/raster_setup.cu) bins chunks of `chunk` records (8,
+// 16, 32 or 64; a template argument) onto tiles. A CTA stages 256
 // records at a time into shared memory, one per thread, then every thread
 // tests its own pixel against all staged triangles (shared-memory broadcast
 // reads, no bank conflicts) and keeps its own z-min in a register. A

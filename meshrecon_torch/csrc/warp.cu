@@ -46,7 +46,12 @@
 // are the plain gathers of the XLA twins (fragment.bilinear_sample,
 // fragment.nearest_sample, remap.bilinear_warp) with no residual budget
 // and no tile fit; consecutive threads take consecutive pixels of a row,
-// so coordinate loads and output stores coalesce.
+// so coordinate loads and output stores coalesce. K3, the flow solver's
+// warp, runs on a 3-D grid (columns on x, rows on y, images on z), so no
+// thread divides to find its pixel; where the width is a multiple of 4 (the
+// pyramid's 640 and 320) each thread takes 4 pixels of a row with one float4
+// load of u and of v and one float4 store, and it reads the image taps
+// through the read-only cache (__ldg).
 #include "common.cuh"
 
 namespace {
@@ -85,20 +90,48 @@ sample_shadow_frame_kernel(const float* __restrict__ shadow,
   out_frame[idx] = mr_bilinear_apply(b, t, width);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K3's CTA: a warp across a row, kK3Rows rows; images on gridDim.z
+constexpr int kK3Cols = 32;
+constexpr int kK3Rows = 8;
+
+// mr_bilinear with the taps read through the read-only cache
+__device__ __forceinline__ float bilinear_ldg(const float* __restrict__ img,
+                                              float col, float row, int h,
+                                              int w) {
+  const MrTaps t = mr_bilinear_taps(col, row, h, w);
+  return mr_bilinear_mix(__ldg(img + t.r0 * w + t.c0),
+                         __ldg(img + t.r0 * w + t.c1),
+                         __ldg(img + t.r1 * w + t.c0),
+                         __ldg(img + t.r1 * w + t.c1), t.fr, t.fc);
+}
+
+// kPix consecutive pixels of a row a thread: 4 (float4 loads of u and v, one
+// float4 store; the row's width a multiple of 4) or 1
+template <int kPix>
+__global__ void __launch_bounds__(kK3Cols * kK3Rows)
 warp_bilinear_kernel(const float* __restrict__ image,
                      const float* __restrict__ u, const float* __restrict__ v,
-                     float* __restrict__ out, long long total, int height,
-                     int width) {
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
+                     float* __restrict__ out, int height, int width) {
+  const int c = (blockIdx.x * kK3Cols + threadIdx.x) * kPix;
+  const int r = blockIdx.y * kK3Rows + threadIdx.y;
+  if (c >= width || r >= height) return;
   const long long plane = (long long)height * width;
-  const long long img = idx / plane;
-  const int pix = (int)(idx - img * plane);
-  const int r = pix / width;
-  const int c = pix - r * width;
-  out[idx] = mr_bilinear(image + img * plane, (float)c + u[idx],
-                         (float)r + v[idx], height, width);
+  const float* src = image + blockIdx.z * plane;
+  const long long at = blockIdx.z * plane + (long long)r * width + c;
+  const float fr = (float)r;
+  if (kPix == 4) {
+    const float4 du = __ldg(reinterpret_cast<const float4*>(u + at));
+    const float4 dv = __ldg(reinterpret_cast<const float4*>(v + at));
+    float4 o;
+    o.x = bilinear_ldg(src, (float)c + du.x, fr + dv.x, height, width);
+    o.y = bilinear_ldg(src, (float)(c + 1) + du.y, fr + dv.y, height, width);
+    o.z = bilinear_ldg(src, (float)(c + 2) + du.z, fr + dv.z, height, width);
+    o.w = bilinear_ldg(src, (float)(c + 3) + du.w, fr + dv.w, height, width);
+    *reinterpret_cast<float4*>(out + at) = o;
+  } else {
+    out[at] = bilinear_ldg(src, (float)c + __ldg(u + at), fr + __ldg(v + at),
+                           height, width);
+  }
 }
 
 // remap._cubic_weights: the polynomials in t of the XLA twin, a = -0.75
@@ -196,15 +229,35 @@ MR_EXPORT int mr_sample_shadow_frame(const float* shadow, const float* frame,
   return (int)cudaGetLastError();
 }
 
-// image, u, v, out: (n, height, width)
+// image, u, v, out: (n, height, width). Four pixels a thread when the
+// width is a multiple of 4 and u, v, out are 16-byte aligned, else one.
 MR_EXPORT int mr_warp_bilinear(const float* image, const float* u,
                                const float* v, float* out, int n, int height,
                                int width, void* stream) {
-  const long long total = (long long)n * height * width;
-  if (total == 0) return 0;
-  warp_bilinear_kernel<<<mr_blocks(total, kThreads), kThreads, 0,
-                         (cudaStream_t)stream>>>(image, u, v, out, total,
-                                                 height, width);
+  if (n < 0 || height < 0 || width < 0 ||
+      height > 65535LL * kK3Rows) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((long long)n * height * width == 0) return 0;
+  const bool vec = width % 4 == 0 &&
+                   (((uintptr_t)u | (uintptr_t)v | (uintptr_t)out) & 15) == 0;
+  const int per = vec ? 4 : 1;
+  const long long plane = (long long)height * width;
+  const dim3 block(kK3Cols, kK3Rows);
+  cudaStream_t s = (cudaStream_t)stream;
+  for (int z0 = 0; z0 < n; z0 += 65535) {  // gridDim.z <= 65535
+    const dim3 grid((width / per + kK3Cols - 1) / kK3Cols,
+                    (height + kK3Rows - 1) / kK3Rows,
+                    n - z0 < 65535 ? n - z0 : 65535);
+    const long long off = z0 * plane;
+    if (vec) {
+      warp_bilinear_kernel<4><<<grid, block, 0, s>>>(
+          image + off, u + off, v + off, out + off, height, width);
+    } else {
+      warp_bilinear_kernel<1><<<grid, block, 0, s>>>(
+          image + off, u + off, v + off, out + off, height, width);
+    }
+  }
   return (int)cudaGetLastError();
 }
 

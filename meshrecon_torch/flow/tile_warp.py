@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from meshrecon_torch.kernels._build import Kernel, check_cuda
+from meshrecon_torch.kernels._build import Kernel, check_cuda, check_like
 
 K2 = Kernel("sample_shadow_frame", "mr_sample_shadow_frame",
             "meshrecon_torch/csrc/warp.cu", "meshrecon/flow/tile_warp.py:256")
@@ -54,14 +54,10 @@ def tile_warp_sample2_batched(srcs_a, srcs_b, scols, srows,
         sample_a = bilinear_sample if bilinear_a else nearest_sample
         return (sample_a(srcs_a, scols, srows),
                 bilinear_sample(srcs_b, scols, srows))
+    check_like("tile_warp_sample2_batched", srcs_a, srcs_b, scols, srows)
     n, h, w = srcs_a.shape
-    for t in (srcs_b, scols, srows):
-        if t.shape != srcs_a.shape:
-            raise ValueError(f"shape {tuple(t.shape)} != {tuple(srcs_a.shape)}")
     out_a = torch.empty_like(srcs_a)
     out_b = torch.empty_like(srcs_b)
-    check_cuda("tile_warp_sample2_batched", srcs_a, srcs_b, scols, srows,
-               out_a, out_b)
     K2.launch(srcs_a, srcs_b, scols, srows, out_a, out_b,
               1 if bilinear_a else 0, n, h, w)
     return out_a, out_b
@@ -80,14 +76,11 @@ def tile_warp_flow_batched(images, u, v, taps: int = 2):
         if taps == 4:
             return flow_remap(flow, images)
         return bilinear_warp(images, flow)
-    if u.shape != images.shape or v.shape != images.shape:
-        raise ValueError(f"flow {tuple(u.shape)}/{tuple(v.shape)} != image "
-                         f"{tuple(images.shape)}")
+    check_like("tile_warp_flow_batched", images, u, v)
     h, w = images.shape[-2:]
-    n = images.numel() // (h * w)
     out = torch.empty_like(images)
-    check_cuda("tile_warp_flow_batched", images, u, v, out)
-    (K3B if taps == 4 else K3).launch(images, u, v, out, n, h, w)
+    (K3B if taps == 4 else K3).launch(images, u, v, out,
+                                      images.numel() // (h * w), h, w)
     return out
 
 

@@ -9,7 +9,10 @@ launched: importing this module needs neither ``nvcc`` nor a GPU.
 
 Every kernel's wrapper owns a :class:`Kernel`, which launches on
 ``torch.cuda.current_stream()``, raises on a non-zero CUDA status, and
-counts its launches.
+counts its launches. Its launch path costs a few microseconds of Python:
+the ctypes entry is resolved once, the device comes from the first
+argument, the device context is entered only when that device is not the
+current one, and the stream is read as a raw handle (:func:`_raw_stream`).
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ NVCC_FLAGS = (
 _SIGNATURES = {
     "mr_raster_tiles": "PPPPPPPPPP" + "IIIIIII" + "P",
     "mr_raster_tiles2": "PPPPPPPPPPP" + "IIIIIIII" + "P",
+    "mr_raster_setup": "PPPPP" + "IIII" + "P",
+    "mr_raster_bin": "PPPPPPP" + "IIIII" + "P",
     "mr_sample_shadow_frame": "PPPPPP" + "IIII" + "P",
     "mr_warp_bilinear": "PPPP" + "III" + "P",
     "mr_warp_bicubic": "PPPP" + "III" + "P",
@@ -142,6 +147,24 @@ def library() -> Library:
 _REGISTRY: list["Kernel"] = []
 
 
+def _current_device() -> int:
+    """The index of the current CUDA device."""
+    return torch._C._cuda_getDevice()
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream of CUDA device ``index`` as a raw
+    ``cudaStream_t``: ``torch._C._cuda_getCurrentRawStream(index)``, the
+    handle ``torch.cuda.current_stream(index).cuda_stream`` gives, without
+    building a ``Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _capturing() -> bool:
+    """True while the current stream records into a CUDA graph."""
+    return torch._C._cuda_isCurrentStreamCapturing()
+
+
 class Kernel:
     """One hand-written kernel: its C entry point and its launch count.
 
@@ -159,20 +182,31 @@ class Kernel:
         self.source = source      # path in the repo
         self.replaces = replaces  # file:line of the TPU kernel
         self.launches = 0
+        self._fn = None           # the ctypes entry, resolved at first launch
         _REGISTRY.append(self)
 
     def launch(self, *args) -> None:
-        """Launch on the current CUDA stream; tensors pass as data_ptr()."""
-        lib = library()
-        device = next(a.device for a in args if isinstance(a, torch.Tensor))
+        """Launch on the current stream of the first argument's device (a
+        CUDA tensor; the wrappers check the rest); tensors pass as
+        data_ptr(), the stream last."""
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(library().cdll, self.entry)
+        index = args[0].get_device()
+        if index < 0:
+            raise ValueError(f"{self.name}: the first argument is not a "
+                             "CUDA tensor")
         cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                  for a in args]
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            code = getattr(lib.cdll, self.entry)(*cargs, stream)
-            capturing = torch.cuda.is_current_stream_capturing()
+        if index == _current_device():
+            code = fn(*cargs, _raw_stream(index))
+            capturing = _capturing()
+        else:
+            with torch.cuda.device(index):
+                code = fn(*cargs, _raw_stream(index))
+                capturing = _capturing()
         if code != 0:
-            text = lib.cdll.mr_error_string(code).decode()
+            text = library().cdll.mr_error_string(code).decode()
             raise RuntimeError(f"{self.name} ({self.entry}): CUDA error "
                                f"{code}: {text}")
         if not capturing:
@@ -184,17 +218,38 @@ def all_kernels() -> list[Kernel]:
     return list(_REGISTRY)
 
 
+def _refuse(name: str, i: int, t: torch.Tensor, dev, dtype) -> None:
+    if t.device != dev or t.device.type != "cuda":
+        raise ValueError(f"{name}: argument {i} on {t.device}, "
+                         f"expected {dev} (CUDA)")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: argument {i} is {t.dtype}, "
+                         f"expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: argument {i} is not contiguous")
+
+
 def check_cuda(name: str, *tensors: torch.Tensor,
                dtype: torch.dtype = torch.float32) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of ``dtype`` on
     the first one's device."""
-    dev = tensors[0].device
+    index = tensors[0].get_device()
     for i, t in enumerate(tensors):
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"{name}: argument {i} on {t.device}, "
-                             f"expected {dev} (CUDA)")
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: argument {i} is {t.dtype}, "
-                             f"expected {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: argument {i} is not contiguous")
+        if (index < 0 or t.get_device() != index or t.dtype != dtype
+                or not t.is_contiguous()):
+            _refuse(name, i, t, tensors[0].device, dtype)
+
+
+def check_like(name: str, ref: torch.Tensor, *others: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> None:
+    """One pass of :func:`check_cuda` that also holds every tensor to the
+    shape of ``ref``."""
+    index, shape = ref.get_device(), ref.shape
+    for i, t in enumerate((ref, *others)):
+        if (index < 0 or t.get_device() != index or t.dtype != dtype
+                or not t.is_contiguous() or t.shape != shape):
+            if t.shape != shape:
+                raise ValueError(f"{name}: argument {i} has shape "
+                                 f"{tuple(t.shape)}, expected "
+                                 f"{tuple(shape)}")
+            _refuse(name, i, t, ref.device, dtype)

@@ -1,31 +1,41 @@
-"""Binned depth rendering: torch-side tile binning and the K1 / K5 wrappers.
+"""Binned depth rendering: the tile binning and the K1 / K5 wrappers.
 
 Port of meshrecon/raster/binned.py, both of its paths:
 
 1. :func:`morton_order` (numpy, on the host) sorts a soup by the Morton code
    of its centroids once per mesh, so chunks of consecutive records stay
    compact.
-2. :func:`pack_records` projects the soup for every camera and packs 16
-   float planes per record (affine edge coefficients, vertex z, bbox).
-3. One level (``render_depth_binned``): :func:`bin_chunks` lists, per screen
+2. :func:`setup_records` projects the soup for every camera and packs 16
+   float planes per record (affine edge coefficients, vertex z, bbox), and
+   the bbox union of each chunk of records.
+3. One level (``render_depth_binned``): :func:`tile_lists` lists, per screen
    tile, the chunks whose bbox union overlaps it, and K1
    (``csrc/raster.cu``) walks each tile's list.
 4. Two levels (``render_depth_binned(two_level=True)``,
-   ``render_depth_binned_batched``): :func:`bin_superchunks` lists, per
-   tile, the superchunks (``supers`` chunks each) whose bbox union overlaps
-   it, and K5 tests each listed chunk's bbox against the tile before it
-   stages the chunk's records.
+   ``render_depth_binned_batched``): :func:`tile_lists` lists, per tile,
+   the superchunks (``supers`` chunks each) whose bbox union overlaps it,
+   and K5 tests each listed chunk's bbox against the tile before it stages
+   the chunk's records.
 
-Both kernels run one CTA per 16x16 tile and all cameras in one launch.
-Unlike the TPU kernels, the records carry the bbox of the pixels a triangle
-can cover (:func:`~meshrecon_torch.raster.rasterizer.coverage_bbox`), not of
-its vertices, so binning never drops a pixel inside the edge-tie fringe and
-the kernels equal the plain ``render_depth`` bit for bit. There is no slab
-split: the whole soup is binned in one pass, padded with invalid records to
-a whole number of chunks (of superchunks with two levels).
+On CUDA tensors the binning (:func:`bin_soup`) is two hand-written kernels
+(``csrc/raster_setup.cu``): SETUP, a thread per (camera, triangle), and
+BIN, a warp per (camera, tile) that compacts its hits with ballots, so a
+render is three launches. Their plain versions, :func:`pack_records`,
+:func:`bin_chunks` and :func:`bin_superchunks` (torch ops), run on CPU
+tensors, and the kernels equal them bit for bit.
+
+Both raster kernels run one CTA per 16x16 tile and all cameras in one
+launch. Unlike the TPU kernels, the records carry the bbox of the pixels a
+triangle can cover (:func:`~meshrecon_torch.raster.rasterizer.coverage_bbox`),
+not of its vertices, so binning never drops a pixel inside the edge-tie
+fringe and the kernels equal the plain ``render_depth`` bit for bit. There
+is no slab split: the whole soup is binned in one pass, padded with invalid
+records to a whole number of chunks (of superchunks with two levels).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -50,6 +60,14 @@ K5A = Kernel("raster_tiles2", "mr_raster_tiles2",
 K5B = Kernel("raster_tiles2_batched", "mr_raster_tiles2",
              "meshrecon_torch/csrc/raster.cu",
              "meshrecon/raster/binned.py:259")
+# the binning: XLA code and a sort on the TPU, feeding its raster kernels
+SETUP = Kernel("raster_setup", "mr_raster_setup",
+               "meshrecon_torch/csrc/raster_setup.cu",
+               "meshrecon/raster/rasterizer.py:129,241 (XLA setup feeding "
+               "binned.py:119)")
+BIN = Kernel("raster_bin", "mr_raster_bin",
+             "meshrecon_torch/csrc/raster_setup.cu",
+             "meshrecon/raster/binned.py:597,612 (jnp.sort tile lists)")
 
 
 def morton_order(soup: np.ndarray) -> np.ndarray:
@@ -86,6 +104,14 @@ def tile_extents(height: int, width: int, tile_h: int, tile_w: int, device):
     ty1 = (height / 2.0 - ay * tile_h) * (2.0 / height)
     ty0 = (height / 2.0 - (ay * tile_h + tile_h - 1)) * (2.0 / height)
     return tx0, tx1, ty0, ty1
+
+
+@functools.lru_cache(maxsize=None)
+def _screen(height: int, width: int, device: torch.device):
+    """``pixel_grid`` and ``tile_extents`` (TILE) of a render, made once per
+    (height, width, device)."""
+    return (pixel_grid(height, width, device),
+            tile_extents(height, width, TILE, TILE, device))
 
 
 def _group_boxes(xmin, xmax, ymin, ymax, size: int):
@@ -187,26 +213,84 @@ def _on_cpu(name, cameras, soup, soup_valid) -> bool:
     return False
 
 
+def setup_records(cameras, soup, soup_valid, multiple: int = CHUNK,
+                  chunk: int = CHUNK):
+    """The triangle setup: ``packed`` (N, 16, R) as :func:`pack_records`
+    gives it (R = 2T rounded up to a multiple of ``multiple``, itself a
+    multiple of ``chunk``), and the bbox union of each chunk of ``chunk``
+    records, ``cbox`` (N, 4, R / chunk) float32 (xmin, xmax, ymin, ymax).
+
+    CUDA tensors launch SETUP; CPU tensors take the plain version,
+    :func:`pack_records` and :func:`_group_boxes`."""
+    if chunk not in CHUNKS or multiple < 1 or multiple % chunk:
+        raise ValueError(f"setup_records: chunk {chunk} (of {CHUNKS}) must "
+                         f"divide multiple {multiple}")
+    if _on_cpu("setup_records", cameras, soup, soup_valid):
+        packed = pack_records(cameras, soup, soup_valid, multiple)
+        cbox = torch.stack(_group_boxes(*packed[:, 12:16].unbind(1), chunk),
+                           1)
+        return packed, cbox
+    n, t = cameras.shape[0], soup.shape[0]
+    if (cameras.shape[1:] != (4, 4) or soup.shape[1:] != (3, 3)
+            or soup_valid.shape != (t,)):
+        raise ValueError(f"setup_records: cameras {tuple(cameras.shape)}, "
+                         f"soup {tuple(soup.shape)}, soup_valid "
+                         f"{tuple(soup_valid.shape)}; expected (N, 4, 4), "
+                         "(T, 3, 3), (T,)")
+    n_rec = -(-2 * t // multiple) * multiple
+    packed = torch.empty((n, 16, n_rec), dtype=torch.float32,
+                         device=cameras.device)
+    cbox = torch.empty((n, 4, n_rec // chunk), dtype=torch.float32,
+                       device=cameras.device)
+    SETUP.launch(cameras, soup, soup_valid, packed, cbox, n, t, n_rec, chunk)
+    return packed, cbox
+
+
+def tile_lists(cbox, height: int, width: int, supers: int = 1):
+    """Per-tile lists of the groups of ``supers`` consecutive chunks whose
+    bbox union overlaps the tile (TILE x TILE, row-major), from the chunk
+    boxes ``cbox`` (N, 4, nch) of :func:`setup_records`, nch a multiple of
+    ``supers``. Returns (lists, counts): lists (N, tiles, nch / supers)
+    int32 with the ids of the active groups first, ascending; counts (N,
+    tiles) int32.
+
+    CUDA tensors launch BIN, which leaves the entries past each count
+    unwritten; CPU tensors take the plain version (:func:`bin_chunks`' and
+    :func:`bin_superchunks`' lists, the sentinel nch / supers past each
+    count)."""
+    if supers < 1 or cbox.dim() != 3 or cbox.shape[1] != 4 \
+            or cbox.shape[2] % supers:
+        raise ValueError(f"tile_lists: cbox {tuple(cbox.shape)} is not (N, "
+                         f"4, a multiple of supers={supers})")
+    if cbox.device.type == "cpu":
+        return bin_chunks(*cbox.unbind(1), height, width, chunk=supers)
+    check_cuda("tile_lists", cbox)
+    n, nch = cbox.shape[0], cbox.shape[2]
+    ntx, nty = -(-width // TILE), -(-height // TILE)
+    lists = torch.empty((n, nty * ntx, nch // supers), dtype=torch.int32,
+                        device=cbox.device)
+    counts = torch.empty((n, nty * ntx), dtype=torch.int32,
+                         device=cbox.device)
+    BIN.launch(cbox, *_screen(height, width, cbox.device)[1], lists, counts,
+               n, nch, supers, ntx, nty)
+    return lists, counts
+
+
 def bin_soup(cameras, soup, soup_valid, height: int, width: int,
              chunk: int = CHUNK, two_level: bool = False,
              supers: int = SUPERS) -> dict:
-    """The binning of a render (torch ops, on the inputs' device): the
-    packed records and the tile lists, one or two levels. Its result is
-    what :func:`raster_binned` launches a kernel on."""
+    """The binning of a render, on the inputs' device: the packed records
+    and the tile lists, one or two levels (:func:`setup_records`, then
+    :func:`tile_lists` of chunks or of superchunks). Its result is what
+    :func:`raster_binned` launches a kernel on."""
     _check_args(chunk, supers)
-    packed = pack_records(cameras, soup, soup_valid,
-                          chunk * supers if two_level else chunk)
-    boxes = packed[:, 12], packed[:, 13], packed[:, 14], packed[:, 15]
-    if two_level:
-        cboxes, lists, counts = bin_superchunks(*boxes, height, width,
-                                                chunk=chunk, supers=supers)
-        cbox = torch.stack(cboxes, dim=-2).contiguous()
-    else:
-        lists, counts = bin_chunks(*boxes, height, width, chunk=chunk)
-        cbox = None
-    return dict(packed=packed, lists=lists, counts=counts, cbox=cbox,
-                grid=pixel_grid(height, width, packed.device),
-                tiles=tile_extents(height, width, TILE, TILE, packed.device),
+    group = supers if two_level else 1
+    packed, cbox = setup_records(cameras, soup, soup_valid, chunk * group,
+                                 chunk)
+    lists, counts = tile_lists(cbox, height, width, group)
+    grid, tiles = _screen(height, width, packed.device)
+    return dict(packed=packed, lists=lists, counts=counts,
+                cbox=cbox if two_level else None, grid=grid, tiles=tiles,
                 height=height, width=width, chunk=chunk, supers=supers)
 
 

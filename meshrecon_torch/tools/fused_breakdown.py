@@ -71,6 +71,10 @@ K2_OPS = 24
 K3_OPS = 22
 K4_LIN_OPS = 22
 K4_SWEEP_OPS = 33
+# the binning's setup (SETUP) a (camera, triangle): the clip transform
+# (72), three near-plane intersections (45), and two records of the divide,
+# area, edge coefficients and float64 corners and pads (~120 each)
+SETUP_OPS = 360
 
 
 def raster_ops(ncam: int, ntri: int, covered: float, h: int, w: int):

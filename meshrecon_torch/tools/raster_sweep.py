@@ -12,9 +12,11 @@ Morton-sorted (:func:`make_soup`). For each case and chunk size it renders
 with one-level K1 and two-level K5a on that camera, with ``--batched`` K5b
 on 4 copies of it, and always K5b and K1 on the 16 cameras of the fused
 update at B=4, K=3; for ``bench578`` also the plain ``render_depth``. Each
-row gives the whole wrapper's ms, the binning's ms (``bin_soup``:
-``pack_records`` and ``bin_chunks`` / ``bin_superchunks``), the kernel's ms
-on those bins (``raster_binned``), the peak device memory of one wrapper
+row gives the whole wrapper's ms, the binning's ms (``bin_soup``: on the
+card the setup and bin kernels, SETUP and BIN; on the CPU their plain
+versions, the torch ops ``pack_records`` and ``bin_chunks`` /
+``bin_superchunks``), the kernel's ms on those bins (``raster_binned``),
+the peak device memory of one wrapper
 call above what was allocated before it, and the entries of the tile-list
 table. Every render must equal the one-level render of the same cameras at
 the first chunk size.

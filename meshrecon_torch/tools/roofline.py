@@ -56,7 +56,7 @@ import time
 import numpy as np
 import torch
 
-from meshrecon_torch.kernels._build import Kernel, check_cuda
+from meshrecon_torch.kernels._build import Kernel, check_like
 from meshrecon_torch.pipeline.config import resolve_device
 from meshrecon_torch.utils.profiling import best_ms, device_line
 
@@ -126,17 +126,17 @@ def _prepare(name, x, out):
     """Check ``x`` (and ``out``) and return the output tensor, allocated
     when not given: a contiguous float32 tensor of x's shape on x's CPU or
     CUDA device."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: tensor on {x.device}; the probes take "
-                         "CPU or CUDA tensors")
     if out is None:
         out = torch.empty_like(x)
-    if out.shape != x.shape:
-        raise ValueError(f"{name}: out {tuple(out.shape)} != "
-                         f"{tuple(x.shape)}")
     if x.is_cuda:
-        check_cuda(name, x, out)
+        check_like(name, x, out)  # one pass: device, type, layout, shape
     else:
+        if x.device.type != "cpu":
+            raise ValueError(f"{name}: tensor on {x.device}; the probes "
+                             "take CPU or CUDA tensors")
+        if out.shape != x.shape:
+            raise ValueError(f"{name}: out {tuple(out.shape)} != "
+                             f"{tuple(x.shape)}")
         for t in (x, out):
             if t.device != x.device or t.dtype != torch.float32:
                 raise ValueError(f"{name}: expected float32 on {x.device}, "

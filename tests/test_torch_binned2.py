@@ -286,3 +286,52 @@ def test_raster_sweep_needs_cuda_unless_cpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         raster_sweep.main(["--height", "24", "--width", "32", "--tris",
                            "64", "--reps", "1", "--chunks", "8"])
+
+
+@pytest.mark.parametrize("scene,chunk,supers", [
+    ("near_straddle", 8, 1), ("near_straddle", 16, 3),
+    ("random_sorted", 64, 8), ("morton_sphere", 32, 2)])
+def test_setup_and_lists_wrappers_are_plain_on_cpu(scene, chunk, supers):
+    """On the CPU the wrappers of the setup and bin kernels take their plain
+    versions: ``setup_records`` is ``pack_records`` with its chunk boxes,
+    ``tile_lists`` is ``bin_chunks`` (supers 1) or ``bin_superchunks``."""
+    cam, soup, valid, h, w = _scene(scene)
+    cams = _t(np.stack([cam, g._make_camera(eye=(0.2, -0.1, 0.3))]))
+    packed, cbox = tbinned.setup_records(cams, _t(soup), _t(valid),
+                                         chunk * supers, chunk)
+    want = tbinned.pack_records(cams, _t(soup), _t(valid), chunk * supers)
+    torch.testing.assert_close(packed, want, rtol=0, atol=0, equal_nan=True)
+    boxes = packed[:, 12], packed[:, 13], packed[:, 14], packed[:, 15]
+    if supers == 1:
+        lists, counts = tbinned.bin_chunks(*boxes, h, w, chunk=chunk)
+        cboxes = tbinned._group_boxes(*boxes, chunk)
+    else:
+        cboxes, lists, counts = tbinned.bin_superchunks(
+            *boxes, h, w, chunk=chunk, supers=supers)
+    assert torch.equal(cbox, torch.stack(cboxes, 1))
+    got_lists, got_counts = tbinned.tile_lists(cbox, h, w, supers)
+    assert torch.equal(got_lists, lists) and torch.equal(got_counts, counts)
+    assert counts.sum() > 0
+
+
+def test_screen_cache_is_the_pixel_grid_and_tile_extents():
+    grid, tiles = tbinned._screen(37, 53, torch.device("cpu"))
+    assert tbinned._screen(37, 53, torch.device("cpu"))[0] is grid
+    for a, b in zip(grid, tr.pixel_grid(37, 53, "cpu")):
+        assert torch.equal(a, b)
+    for a, b in zip(tiles, tbinned.tile_extents(37, 53, tbinned.TILE,
+                                                tbinned.TILE, "cpu")):
+        assert torch.equal(a, b)
+
+
+def test_setup_and_lists_wrappers_refuse():
+    cam, soup, valid, h, w = _scene("glx")
+    args = (_t(cam)[None], _t(soup), _t(valid))
+    for multiple, chunk in ((12, 8), (8, 16), (64, 12)):
+        with pytest.raises(ValueError):
+            tbinned.setup_records(*args, multiple, chunk)
+    cbox = tbinned.setup_records(*args, 24, 8)[1]
+    for box, supers in ((cbox, 2), (cbox, 0), (cbox[:, :3], 1),
+                        (cbox[0], 1)):
+        with pytest.raises(ValueError):
+            tbinned.tile_lists(box, h, w, supers)

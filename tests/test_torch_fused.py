@@ -145,28 +145,18 @@ def test_state_round_trip():
 
 
 def test_port_never_imports_jax():
-    modules = ("meshrecon_torch.pipeline.fused", "meshrecon_torch.state",
-               "meshrecon_torch.flow.api", "meshrecon_torch.flow.farneback",
-               "meshrecon_torch.flow.multigrid",
-               "meshrecon_torch.flow.jacobi", "meshrecon_torch.flow.remap",
-               "meshrecon_torch.flow.tile_warp",
-               "meshrecon_torch.raster.fragment",
-               "meshrecon_torch.problems", "meshrecon_torch.cli",
-               "meshrecon_torch.pipeline.reconstruct",
-               "meshrecon_torch.pipeline.config",
-               "meshrecon_torch.pipeline.heuristic",
-               "meshrecon_torch.pipeline.checkpoint",
-               "meshrecon_torch.depth.plane_sweep",
-               "meshrecon_torch.io.synthetic", "meshrecon_torch.io.tracks",
-               "meshrecon_torch.meshing.poisson",
-               "meshrecon_torch.meshing.native",
-               "meshrecon_torch.points.filter",
-               "meshrecon_torch.utils.profiling",
-               "meshrecon_torch.tools.raster_sweep",
-               "meshrecon_torch.tools.roofline",
-               "meshrecon_torch.tools.fused_breakdown")
-    code = (f"import sys, {', '.join(modules)}; "
-            "sys.exit('jax' in sys.modules or 'meshrecon' in sys.modules)")
+    """Every module of the port, found by walking the package, imports
+    neither jax nor the JAX package."""
+    code = "\n".join([
+        "import importlib, pkgutil, sys",
+        "import meshrecon_torch",
+        "names = [m.name for m in pkgutil.walk_packages(",
+        "    meshrecon_torch.__path__, 'meshrecon_torch.')]",
+        "for name in names:",
+        "    importlib.import_module(name)",
+        "assert {'meshrecon_torch.parity', 'meshrecon_torch.meshing.alpha',",
+        "        'meshrecon_torch.raster.binned'} <= set(names), names",
+        "sys.exit('jax' in sys.modules or 'meshrecon' in sys.modules)"])
     root = Path(__file__).resolve().parent.parent
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=root)

@@ -8,8 +8,11 @@ it run it without the repository's conftest:
 
 Bounds: K1 and K5 (the two-level raster, through both of its wrappers)
 bitwise against ``render_depth`` (same affine edge coefficients,
-explicitly rounded operations in the same order); K2's nearest sample
-bitwise (an index pick); K2's bilinear sample and K3 1e-4 on a 0..255
+explicitly rounded operations in the same order); the binning's SETUP
+bitwise against ``pack_records`` (NaN where it has NaN) and BIN's counts and
+list prefixes equal to ``bin_chunks`` / ``bin_superchunks``; K3 bitwise
+against ``bilinear_warp``; K2's nearest sample
+bitwise (an index pick); K2's bilinear sample 1e-4 on a 0..255
 scale (the library is built with -fmad=false, so the operation order is
 the plain one); K3c the same 1e-4 on valid pixels and exactly 0 on the
 others; K4 1e-4 px (the kernel folds the data term into cc and 1/denom as
@@ -187,6 +190,121 @@ def test_raster_wrappers_refuse(dev):
     assert _counts() == counts
 
 
+def _bits_equal(a, b):
+    """Bit for bit, NaN-aware: the same bits, or NaN in both."""
+    return a.shape == b.shape and bool(
+        ((a.view(torch.int32) == b.view(torch.int32))
+         | (a.isnan() & b.isnan())).all())
+
+
+def _setup_case(name, dev):
+    """(cameras, soup, soup_valid): a sphere seen by 6 cameras; 200 random
+    triangles straddling the near plane; the same with invalid, degenerate
+    (zero-area, collinear) and NaN triangles."""
+    if name == "sphere":
+        soup, valid = (torch.from_numpy(a).to(dev) for a in
+                       state.pack_soup(problems.sphere_soup(32, 64)))
+        return _cams(2, 2, dev), soup, valid
+    rng = np.random.default_rng(12345)
+    soup = rng.normal(size=(200, 3, 3)).astype(np.float32)
+    valid = np.ones(200, bool)
+    if name == "invalid_degenerate":
+        valid[::7] = False
+        soup[1::5, 1] = soup[1::5, 0]                       # zero area
+        soup[2::9, 2] = 2 * soup[2::9, 1] - soup[2::9, 0]   # collinear
+        soup[3, 0, 0] = np.nan
+    cam = problems.make_camera(near=0.01, far=10.0, eye=(0, 0, 0.2))
+    return (torch.from_numpy(cam).to(dev)[None],
+            torch.from_numpy(soup).to(dev), torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.parametrize("case", ["sphere", "straddle",
+                                  "invalid_degenerate"])
+@pytest.mark.parametrize("multiple,chunk", [(c * s, c) for c in binned.CHUNKS
+                                            for s in (1, 3, 8)])
+def test_raster_setup_bitwise(dev, case, multiple, chunk):
+    """SETUP's records against pack_records bit for bit (NaN where it has
+    NaN), padding records included, and its chunk boxes against the plain
+    bbox unions."""
+    cams, soup, valid = _setup_case(case, dev)
+    before = binned.SETUP.launches
+    packed, cbox = binned.setup_records(cams, soup, valid, multiple, chunk)
+    assert binned.SETUP.launches == before + 1
+    want = binned.pack_records(cams, soup, valid, multiple)
+    assert _bits_equal(packed, want)
+    boxes = want[:, 12], want[:, 13], want[:, 14], want[:, 15]
+    assert _bits_equal(cbox, torch.stack(binned._group_boxes(*boxes, chunk),
+                                         1))
+
+
+@pytest.mark.parametrize("chunk", binned.CHUNKS)
+@pytest.mark.parametrize("supers,h,w", [(1, 120, 160), (3, 120, 160),
+                                        (8, 50, 70)])
+def test_raster_bin_matches_plain(dev, chunk, supers, h, w):
+    """BIN's counts and list prefixes against bin_chunks (supers 1) and
+    bin_superchunks, on the plain version's chunk boxes."""
+    soup, valid = (torch.from_numpy(a).to(dev) for a in
+                   state.pack_soup(problems.sphere_soup(64, 128)))
+    cams = _cams(1, 3, dev)
+    packed = binned.pack_records(cams, soup, valid, chunk * supers)
+    boxes = packed[:, 12], packed[:, 13], packed[:, 14], packed[:, 15]
+    if supers == 1:
+        cboxes = binned._group_boxes(*boxes, chunk)
+        lists, counts = binned.bin_chunks(*boxes, h, w, chunk=chunk)
+    else:
+        cboxes, lists, counts = binned.bin_superchunks(
+            *boxes, h, w, chunk=chunk, supers=supers)
+    before = binned.BIN.launches
+    got, got_counts = binned.tile_lists(torch.stack(cboxes, 1), h, w, supers)
+    assert binned.BIN.launches == before + 1
+    assert got.shape == lists.shape and counts.sum() > 0
+    assert torch.equal(got_counts, counts)
+    live = torch.arange(lists.shape[-1], device=dev) < counts[..., None]
+    assert torch.equal(torch.where(live, got, 0), torch.where(live, lists, 0))
+
+
+def test_binning_never_takes_the_eager_setup_or_sort(dev, monkeypatch):
+    """On the card the renders bin with SETUP and BIN only: with the plain
+    setup and the sort patched to raise, they still equal render_depth."""
+    soup, valid = (torch.from_numpy(a).to(dev) for a in
+                   state.pack_soup(problems.sphere_soup(32, 64)))
+    cams = _cams(1, 3, dev)
+    ref = rasterizer.render_depth(cams, soup, valid, 96, 128)
+
+    def eager(*args, **kwargs):
+        raise AssertionError("the eager binning ran on the card")
+
+    for name in ("pack_records", "_tile_lists", "_group_boxes", "bin_chunks",
+                 "bin_superchunks", "clip_project_planes",
+                 "edge_affine_planes", "coverage_bbox"):
+        monkeypatch.setattr(binned, name, eager)
+    before = (binned.SETUP.launches, binned.BIN.launches)
+    outs = (binned.render_depth_binned(cams, soup, valid, 96, 128),
+            binned.render_depth_binned(cams, soup, valid, 96, 128,
+                                       two_level=True),
+            binned.render_depth_binned_batched(cams, soup, valid, 96, 128))
+    assert (binned.SETUP.launches, binned.BIN.launches) == (
+        before[0] + 3, before[1] + 3)
+    assert (ref < 1.0).any()
+    for out in outs:
+        assert torch.equal(out, ref)
+
+
+def test_raw_stream_is_the_current_stream(dev):
+    from meshrecon_torch.kernels import _build
+
+    assert _build._current_device() == torch.cuda.current_device()
+    assert _build._raw_stream(dev.index) == torch.cuda.current_stream(
+        dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    x = torch.zeros((8, 128), device=dev)
+    with torch.cuda.stream(side):
+        assert _build._raw_stream(dev.index) == side.cuda_stream
+        out = roofline.add_one(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.ones_like(x))
+
+
 def test_raster_sweep_on_gpu(dev):
     from meshrecon_torch.tools import raster_sweep
 
@@ -265,17 +383,22 @@ def test_hs_jacobi_fields(dev, iters):
     assert (v - vr).abs().max().item() <= 1e-3
 
 
-@pytest.mark.parametrize("n,h,w", [(2, 31, 45), (12, 120, 160)])
-def test_warp_bilinear(dev, n, h, w):
+@pytest.mark.parametrize("n,h,w,offset", [
+    (3, 37, 53, 0), (2, 31, 45, 0), (4, 48, 64, 0), (4, 48, 64, 1),
+    (12, 120, 160, 0), (12, 240, 320, 0)])
+def test_warp_bilinear(dev, n, h, w, offset):
+    """K3 bit for bit against bilinear_warp: four pixels a thread where the
+    width is a multiple of 4, one where it is not or where the flow is not
+    16-byte aligned (offset 1)."""
     g = torch.Generator().manual_seed(2)
     img = (255 * torch.rand((n, h, w), generator=g)).to(dev)
-    u = (6 * torch.randn((n, h, w), generator=g)).to(dev)
-    v = (6 * torch.randn((n, h, w), generator=g)).to(dev)
+    flow = (6 * torch.randn((2, n * h * w + offset), generator=g)).to(dev)
+    u = flow[0, offset:].view(n, h, w)
+    v = flow[1, offset:].view(n, h, w)
     before = tile_warp.K3.launches
     out = tile_warp.tile_warp_flow_batched(img, u, v)
     assert tile_warp.K3.launches == before + 1
-    ref = bilinear_warp(img, torch.stack([u, v], -1))
-    assert (out - ref).abs().max().item() <= 1e-4
+    assert torch.equal(out, bilinear_warp(img, torch.stack([u, v], -1)))
 
 
 @pytest.mark.parametrize("solver,iters", [("cheb", 14), ("cheb", 1),
@@ -534,4 +657,5 @@ def test_fused_breakdown_on_gpu(dev):
     parity.check_slice(state.to_numpy(out["all"]),
                        state.to_numpy(ref))
     cost = fb.main(["96", "128", "2", "1", "2", "--cost-only"])
-    assert cost["stages"][0]["launches"] == {binned.K1.name: 1}
+    assert cost["stages"][0]["launches"] == {
+        binned.K1.name: 1, binned.SETUP.name: 1, binned.BIN.name: 1}
