@@ -21,7 +21,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    at the K=8 bucket 4x8x480x640; K6 (Jacobi sweeps given the fields) at
    12x480x640, 60 sweeps. A missed bound raises. K3 at both pyramid sizes
    also gives its device time and ``grid_sample``'s from a CUDA graph of
-   100 calls beside the eager times.
+   100 calls beside the eager times. K4 (at both pyramid sizes) and K6 run
+   several sweeps a launch; each must equal the same sweeps run one a
+   launch bit for bit, and is timed against them in turns, eager and from
+   CUDA graphs, with its launch geometry (sweeps a launch, tile, shared
+   memory a CTA) printed; K6 also at 6-24 sweeps a launch.
    After the kernel phases: the binning phase. K1's binning is two
    kernels: SETUP (the triangle setup) bitwise against ``pack_records``
    (NaN-aware) and BIN (the tile lists) against ``bin_chunks`` at chunks 8
@@ -385,22 +389,68 @@ def kernel_phases(torch, dev, res, slice_args):
                                       dev)).contiguous()
         warped = (prev + _smooth_field(torch, gen, (n, h, w), 6.0,
                                        dev)).contiguous()
-        uk, vk = jacobi.hs_level_fused(prev, warped, u, v, ALPHA2, iters=14,
-                                       solver="cheb")
+
+        def k4(per_launch=jacobi.MAX_SWEEPS_PER_LAUNCH):
+            return jacobi.hs_level_fused(prev, warped, u, v, ALPHA2,
+                                         iters=14, solver="cheb",
+                                         _sweeps_per_launch=per_launch)
+
         up, vp = _hs_sweeps_cheb(prev, warped, u, v, ALPHA2, 14)
-        torch.cuda.synchronize()
-        err = max((uk - up).abs().max().item(), (vk - vp).abs().max().item())
-        ms = _cuda_ms(torch, lambda: jacobi.hs_level_fused(
-            prev, warped, u, v, ALPHA2, iters=14, solver="cheb"), 20)
+        label = f"{n}x{h}x{w}, 14 cheb sweeps"
+        err, ms = _blocked_phase(torch, "hs_sweep", label, k4, (up, vp),
+                                 14, h, w)
         plain_ms = _cuda_ms(torch, lambda: _hs_sweeps_cheb(
             prev, warped, u, v, ALPHA2, 14), 5)
         # the kernel folds the data term into cc and 1/denom
         # (pallas_jacobi.py's form), the plain version does not: 1e-4 px.
         # bytes: prev, warped, u0, v0 in, u, v out; operations: 22 for the
         # linearization, 33 a Chebyshev sweep
-        res.add(jacobi.K4, f"{n}x{h}x{w}, 14 cheb sweeps", err, 1e-4, ms,
+        res.add(jacobi.K4, label, err, 1e-4, ms,
                 plain_ms, work=(24 * npx, (fb.K4_LIN_OPS
                                            + 14 * fb.K4_SWEEP_OPS) * npx))
+
+
+def _blocked_phase(torch, name, label, call, plain, iters, h, w,
+                   graph_calls=20):
+    """A blocked Horn-Schunck kernel (``call()``: its default sweeps a
+    launch) against the same sweeps one a launch (``call(1)``): bitwise
+    equal, both against ``plain`` (u, v); times in turns (one, blocked,
+    blocked, one), eager and from CUDA graphs of ``graph_calls`` calls.
+    Prints the launch geometry; returns (max error against the plain
+    version, the blocked call's eager ms)."""
+    from meshrecon_torch.flow import jacobi
+
+    kernel = jacobi.K4 if name == "hs_sweep" else jacobi.K6
+    n0 = kernel.launches
+    blocked = call()
+    n1 = kernel.launches
+    one = call(1)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(blocked, one)):
+        raise AssertionError(f"{name} [{label}]: the blocked sweeps differ "
+                             "from one sweep a launch")
+    err = max((a - b).abs().max().item() for a, b in zip(blocked, plain))
+    err_one = max((a - b).abs().max().item() for a, b in zip(one, plain))
+    per_launch = -(-iters // (n1 - n0))
+    shape = jacobi.block_shape(per_launch, h, w)
+    one_a = _cuda_ms(torch, lambda: call(1), 5)
+    ms_a = _cuda_ms(torch, call, 20)
+    ms_b = _cuda_ms(torch, call, 20, warm_up=False)
+    one_b = _cuda_ms(torch, lambda: call(1), 5, warm_up=False)
+    ms, one_ms = (ms_a + ms_b) / 2, (one_a + one_b) / 2
+    graph_ms = _graph_ms(torch, call, calls=graph_calls)
+    one_graph_ms = _graph_ms(torch, lambda: call(1), calls=graph_calls)
+    print(f"{name} [{label}]: {n1 - n0} launch(es) of <= {per_launch} "
+          f"sweeps, tile {shape['tile'][0]}x{shape['tile'][1]} (rows x "
+          f"columns), {shape['ctas_per_image']} CTAs an image, "
+          f"{shape['smem_bytes']} B dynamic shared memory a CTA; bitwise "
+          f"equal to {iters} launches of one sweep; max error against the "
+          f"plain version {err:.3e} (one a launch {err_one:.3e}); eager "
+          f"{ms:.4f} ms ({ms_a:.4f}, {ms_b:.4f}) against {one_ms:.4f} "
+          f"({one_a:.4f}, {one_b:.4f}) one sweep a launch, x{one_ms / ms:.2f}"
+          f"; device (CUDA graph of {graph_calls} calls) {graph_ms:.4f} ms "
+          f"against {one_graph_ms:.4f}, x{one_graph_ms / graph_ms:.2f}")
+    return max(err, err_one), ms
 
 
 def _peak_mb(torch, fn):
@@ -797,19 +847,29 @@ def k6_phase(torch, dev, res):
     px = n * H * W
     prev, warped, u0, v0 = _linearization(torch, dev, gen, n, H, W)
     ix, iy, c = (t.contiguous() for t in hs_fields(prev, warped, u0, v0))
-    uk, vk = jacobi.hs_jacobi(ix, iy, c, u0, v0, ALPHA2, iters=60)
-    up, vp = jacobi.hs_jacobi_plain(ix, iy, c, u0, v0, ALPHA2, iters=60)
-    torch.cuda.synchronize()
-    err = max((uk - up).abs().max().item(), (vk - vp).abs().max().item())
-    ms = _cuda_ms(torch, lambda: jacobi.hs_jacobi(ix, iy, c, u0, v0, ALPHA2,
-                                                  iters=60), 10)
+
+    def k6(per_launch=jacobi.K6_SWEEPS_PER_LAUNCH):
+        return jacobi.hs_jacobi(ix, iy, c, u0, v0, ALPHA2, iters=60,
+                                _sweeps_per_launch=per_launch)
+
+    plain = jacobi.hs_jacobi_plain(ix, iy, c, u0, v0, ALPHA2, iters=60)
+    label = f"{n}x{H}x{W}, 60 sweeps"
+    err, ms = _blocked_phase(torch, "hs_jacobi_fields", label, k6, plain, 60,
+                             H, W, graph_calls=10)
+    # the sweeps a launch that K6_SWEEPS_PER_LAUNCH takes: device times of
+    # the candidates (CUDA graphs of 10 calls)
+    sweep = {s: _graph_ms(torch, lambda s=s: k6(s), calls=10)
+             for s in (6, 10, 12, 15, 20, 24)}
+    print(f"hs_jacobi_fields [{label}]: device ms by sweeps a launch "
+          + ", ".join(f"{s}: {t:.4f}" for s, t in sweep.items())
+          + f" (K6_SWEEPS_PER_LAUNCH = {jacobi.K6_SWEEPS_PER_LAUNCH})")
     plain_ms = _cuda_ms(torch, lambda: jacobi.hs_jacobi_plain(
         ix, iy, c, u0, v0, ALPHA2, iters=60), 3)
     # the plain version's arithmetic in its order (-fmad=false); 1e-3 px is
     # the JAX package's bound for hs_jacobi (tests/test_pallas_jacobi.py).
     # bytes: ix, iy, c, u0, v0 in, u, v out; operations: 5 for 1/denom,
     # 27 a sweep (two 9-operation averages, the data term, the update)
-    res.add(jacobi.K6, f"{n}x{H}x{W}, 60 sweeps", err, 1e-3, ms, plain_ms,
+    res.add(jacobi.K6, label, err, 1e-3, ms, plain_ms,
             work=(28 * px, (5 + 60 * 27) * px))
 
 

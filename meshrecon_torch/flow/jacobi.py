@@ -4,21 +4,31 @@ Port of meshrecon/flow/pallas_jacobi.py.
 
 - :func:`hs_level_fused` (K4) relaxes one warp linearization. The plain
   version is ``flow.variational._hs_sweeps_cheb`` (Chebyshev) /
-  ``_hs_sweeps`` (Jacobi). On a CUDA tensor each sweep is one K4 launch
-  (``csrc/hs_sweep.cu``); the first launch also derives and stores the
-  linearization (Ix, Iy, cc, 1/denom). The Chebyshev schedule is one
-  global schedule over all ``iters`` sweeps, never restarted.
+  ``_hs_sweeps`` (Jacobi). On a CUDA tensor one K4 launch
+  (``csrc/hs_sweep.cu``) derives the linearization (Ix, Iy, cc, 1/denom)
+  and runs up to :data:`MAX_SWEEPS_PER_LAUNCH` sweeps in shared memory, so
+  the update's 14 Chebyshev sweeps are one launch a pyramid level; more
+  sweeps split into the fewest launches, which carry the state through
+  device memory. The Chebyshev schedule is one global schedule over all
+  ``iters`` sweeps, never restarted.
 - :func:`hs_jacobi` (K6) runs plain Jacobi sweeps given the fields
   (Ix, Iy, c): the fixed-point reference of the multigrid solver. The
-  plain version is :func:`hs_jacobi_plain`. On a CUDA tensor each sweep is
-  one K6 launch; the first also stores 1/denom.
+  plain version is :func:`hs_jacobi_plain`. On a CUDA tensor each K6
+  launch runs :data:`K6_SWEEPS_PER_LAUNCH` sweeps (the last fewer).
+
+Both take a private ``_sweeps_per_launch``: 1 runs one sweep a launch, the
+schedule before the kernel was blocked, which the tests and
+``chip_smoke.py`` compare it with bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-from meshrecon_torch.kernels._build import Kernel, check_cuda
+from meshrecon_torch.kernels._build import Kernel, check_cuda, library
 
 K4 = Kernel("hs_sweep", "mr_hs_sweep", "meshrecon_torch/csrc/hs_sweep.cu",
             "meshrecon/flow/pallas_jacobi.py:222")
@@ -26,17 +36,62 @@ K6 = Kernel("hs_jacobi_fields", "mr_hs_jacobi_fields",
             "meshrecon_torch/csrc/hs_sweep.cu",
             "meshrecon/flow/pallas_jacobi.py:44")
 
+MAX_SWEEPS_PER_LAUNCH = 24  # kMaxSweeps in csrc/hs_sweep.cu
+# K6's sweeps a launch: the fastest of those timed by chip_smoke.py's K6
+# phase at 12x480x640, 60 sweeps (PERF.md)
+K6_SWEEPS_PER_LAUNCH = 10
+
+
+def chunk_sizes(iters: int, per_launch: int) -> list[int]:
+    """Sweeps of each launch: ``iters`` in ceil(iters / per_launch) near-
+    equal parts (the larger first), each at most ``per_launch``."""
+    if not 1 <= per_launch <= MAX_SWEEPS_PER_LAUNCH:
+        raise ValueError(f"sweeps a launch must be 1-{MAX_SWEEPS_PER_LAUNCH}"
+                         f": {per_launch}")
+    if iters <= 0:
+        return []
+    n = -(-iters // per_launch)
+    q, r = divmod(iters, n)
+    return [q + 1] * r + [q] * (n - r)
+
+
+@functools.lru_cache(maxsize=64)
+def _schedules(iters: int, rho: float, cheb: bool, sizes: tuple):
+    """Per launch, its (a_k, b_k) pairs as a host float array (None for
+    plain Jacobi, which the kernel fills in)."""
+    from meshrecon_torch.flow.variational import cheb_coeffs_f32
+
+    if not cheb:
+        return (None,) * len(sizes)
+    flat = [x for pair in cheb_coeffs_f32(iters, rho) for x in pair]
+    out, k = [], 0
+    for s in sizes:
+        out.append((ctypes.c_float * (2 * s))(*flat[2 * k:2 * (k + s)]))
+        k += s
+    return tuple(out)
+
+
+def block_shape(sweeps: int, height: int, width: int) -> dict:
+    """The launch geometry of ``sweeps`` sweeps a launch on a (height,
+    width) image, from the built library: the tile each CTA writes
+    (rows, columns), its dynamic shared memory in bytes and the CTAs an
+    image."""
+    out = (ctypes.c_int * 4)()
+    if library().cdll.mr_hs_block_shape(sweeps, height, width, out) != 0:
+        raise ValueError(f"no launch of {sweeps} sweeps on {height}x{width}")
+    return {"tile": (out[1], out[0]), "smem_bytes": out[2],
+            "ctas_per_image": out[3]}
+
 
 def hs_level_fused(prev, warped, u0, v0, alpha2: float, iters: int = 60,
-                   solver: str = "jacobi", rho: float = 0.98):
+                   solver: str = "jacobi", rho: float = 0.98, *,
+                   _sweeps_per_launch: int = MAX_SWEEPS_PER_LAUNCH):
     """Relax the HS system linearized at (u0, v0); returns (u, v).
 
     prev broadcasts against warped, u0, v0 (..., H, W) float32 (the solver
     shares one source frame across K targets). solver: "cheb" or "jacobi".
     """
-    from meshrecon_torch.flow.variational import (_hs_sweeps,
-                                                  _hs_sweeps_cheb,
-                                                  cheb_coeffs_f32)
+    from meshrecon_torch.flow.variational import _hs_sweeps, _hs_sweeps_cheb
 
     if solver not in ("cheb", "jacobi"):
         raise ValueError(f"solver must be cheb|jacobi: {solver!r}")
@@ -45,33 +100,31 @@ def hs_level_fused(prev, warped, u0, v0, alpha2: float, iters: int = 60,
             return _hs_sweeps_cheb(prev, warped, u0, v0, alpha2, iters, rho)
         return _hs_sweeps(prev, warped, u0, v0, alpha2, iters)
 
+    cheb = solver == "cheb"
+    sizes = chunk_sizes(iters, _sweeps_per_launch)
     shape = warped.shape
     h, w = shape[-2:]
     n = warped.numel() // (h * w)
     a = prev.expand(shape).contiguous()
     b, u0, v0 = warped.contiguous(), u0.contiguous(), v0.contiguous()
-    fields = [torch.empty_like(b) for _ in range(4)]   # ix, iy, cc, 1/denom
-    bufs = [torch.empty_like(b) for _ in range(4)]     # u, v ping-pong
-    check_cuda("hs_level_fused", a, b, u0, v0, *fields, *bufs)
-    if solver == "cheb":
-        coeffs = cheb_coeffs_f32(iters, rho)
-    else:
-        coeffs = [(1.0, 0.0)] * iters
-    # state: (u, v) current, (up, vp) previous; the output overwrites the
-    # previous iterate in place (each pixel reads only its own previous
-    # value), except on the first sweep, whose previous iterate is u0/v0
-    u, v, up, vp = u0, v0, u0, v0
-    spare_u, spare_v = bufs[0], bufs[1]
-    other_u, other_v = bufs[2], bufs[3]
-    for k, (a_k, b_k) in enumerate(coeffs):
-        if k < 2:
-            out_u, out_v = (spare_u, spare_v) if k == 0 else (other_u, other_v)
-        else:
-            out_u, out_v = up, vp
-        K4.launch(a, b, u0, v0, *fields, u, v, up, vp, out_u, out_v,
-                  float(a_k), float(b_k), float(alpha2), 1 if k == 0 else 0,
-                  n, h, w)
-        u, v, up, vp = out_u, out_v, u, v
+    # the state crosses launches in two sets of buffers, one read and one
+    # written: a CTA's halo reads its neighbours' pixels of the launch
+    # before. Chebyshev carries the iterate before (up, vp) too, but out of
+    # the last launch only (u, v).
+    per_set = 4 if cheb and len(sizes) > 1 else 2
+    bufs = [torch.empty_like(b)
+            for _ in range(per_set * min(len(sizes), 2))]
+    check_cuda("hs_level_fused", a, b, u0, v0, *bufs)
+    schedules = _schedules(iters, float(rho), cheb, tuple(sizes))
+    u, v = u0, v0
+    up, vp = (u0, v0) if cheb else (None, None)
+    for j, (s, coeffs) in enumerate(zip(sizes, schedules)):
+        out = bufs[per_set * (j % 2):per_set * (j % 2 + 1)]
+        last = j == len(sizes) - 1
+        out_up, out_vp = (None, None) if last or not cheb else out[2:4]
+        K4.launch(a, b, u0, v0, u, v, up, vp, out[0], out[1], out_up,
+                  out_vp, coeffs, s, float(alpha2), n, h, w)
+        u, v, up, vp = out[0], out[1], out_up, out_vp
     return u.reshape(shape), v.reshape(shape)
 
 
@@ -91,11 +144,13 @@ def hs_jacobi_plain(ix, iy, c, u0, v0, alpha2: float, iters: int = 60):
     return u, v
 
 
-def hs_jacobi(ix, iy, c, u0, v0, alpha2: float, iters: int = 60):
+def hs_jacobi(ix, iy, c, u0, v0, alpha2: float, iters: int = 60, *,
+              _sweeps_per_launch: int = K6_SWEEPS_PER_LAUNCH):
     """Run ``iters`` Horn-Schunck Jacobi sweeps given the fields; returns
     (u, v). ix, iy, c, u0, v0: (..., H, W) float32 of one shape."""
     if not ix.is_cuda:
         return hs_jacobi_plain(ix, iy, c, u0, v0, alpha2, iters)
+    sizes = chunk_sizes(iters, _sweeps_per_launch)
     shape = ix.shape
     for t in (iy, c, u0, v0):
         if t.shape != shape:
@@ -104,14 +159,13 @@ def hs_jacobi(ix, iy, c, u0, v0, alpha2: float, iters: int = 60):
     n = ix.numel() // (h * w)
     ix, iy, c = ix.contiguous(), iy.contiguous(), c.contiguous()
     u, v = u0.contiguous(), v0.contiguous()
-    invd = torch.empty_like(ix)
-    bufs = [torch.empty_like(ix) for _ in range(4)]  # (u, v) ping-pong
-    check_cuda("hs_jacobi", ix, iy, c, u, v, invd, *bufs)
-    if iters == 0:
+    # (u, v) in one pair of buffers, out to the other
+    bufs = [torch.empty_like(ix) for _ in range(2 * min(len(sizes), 2))]
+    check_cuda("hs_jacobi", ix, iy, c, u, v, *bufs)
+    if not sizes:
         return u.clone(), v.clone()
-    for k in range(iters):
-        out_u, out_v = bufs[0:2] if k % 2 == 0 else bufs[2:4]
-        K6.launch(ix, iy, c, invd, u, v, out_u, out_v, float(alpha2),
-                  1 if k == 0 else 0, n, h, w)
+    for j, s in enumerate(sizes):
+        out_u, out_v = bufs[2 * (j % 2):2 * (j % 2) + 2]
+        K6.launch(ix, iy, c, u, v, out_u, out_v, s, float(alpha2), n, h, w)
         u, v = out_u, out_v
     return u, v

@@ -53,8 +53,10 @@ _SIGNATURES = {
     "mr_warp_bilinear": "PPPP" + "III" + "P",
     "mr_warp_bicubic": "PPPP" + "III" + "P",
     "mr_sample_bilinear_masked": "PPPPP" + "III" + "P",
-    "mr_hs_sweep": "PPPP" + "PPPP" + "PPPPPP" + "FFF" + "IIII" + "P",
-    "mr_hs_jacobi_fields": "PPPP" + "PPPP" + "F" + "IIII" + "P",
+    # the schedule's (a_k, b_k) pairs are a host pointer (P) before "IF"
+    "mr_hs_sweep": "PPPP" + "PPPP" + "PPPP" + "P" + "IF" + "III" + "P",
+    "mr_hs_jacobi_fields": "PPP" + "PP" + "PP" + "IF" + "III" + "P",
+    "mr_hs_divide": "PPP" + "I" + "P",
     "mr_roofline_copy": "PP" + "I" + "P",
     "mr_roofline_fma": "PP" + "II" + "P",
     "mr_roofline_tiny": "PP" + "II" + "P",
@@ -141,6 +143,8 @@ def library() -> Library:
         fn.restype = ctypes.c_int
     cdll.mr_error_string.argtypes = [ctypes.c_int]
     cdll.mr_error_string.restype = ctypes.c_char_p
+    cdll.mr_hs_block_shape.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    cdll.mr_hs_block_shape.restype = ctypes.c_int
     return Library(cdll, path, seconds, log)
 
 

@@ -16,7 +16,8 @@ bitwise (an index pick); K2's bilinear sample 1e-4 on a 0..255
 scale (the library is built with -fmad=false, so the operation order is
 the plain one); K3c the same 1e-4 on valid pixels and exactly 0 on the
 others; K4 1e-4 px (the kernel folds the data term into cc and 1/denom as
-pallas_jacobi.py does, the plain version does not); K3b 1e-4 on a 0..255
+pallas_jacobi.py does, the plain version does not); K4 and K6 with several
+sweeps a launch bitwise against one sweep a launch; K3b 1e-4 on a 0..255
 scale (the twin's weights and tap order, -fmad=false); K6 1e-3 px, the
 JAX package's bound for hs_jacobi (it repeats hs_jacobi_plain's
 arithmetic); K2's bilinear shadow mode 1e-4. The roofline probes: R1, R3
@@ -26,6 +27,8 @@ update, the flow update's variants and the reconstruction on the card
 against their plain runs on the CPU; the roofline and breakdown tools on
 the card.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -377,7 +380,8 @@ def test_hs_jacobi_fields(dev, iters):
     v0 = torch.randn(shape, generator=g).to(dev)
     before = jacobi.K6.launches
     u, v = jacobi.hs_jacobi(ix, iy, c, u0, v0, 144.0, iters=iters)
-    assert jacobi.K6.launches == before + iters
+    assert jacobi.K6.launches == before + math.ceil(
+        iters / jacobi.K6_SWEEPS_PER_LAUNCH)
     ur, vr = jacobi.hs_jacobi_plain(ix, iy, c, u0, v0, 144.0, iters=iters)
     assert (u - ur).abs().max().item() <= 1e-3
     assert (v - vr).abs().max().item() <= 1e-3
@@ -413,13 +417,127 @@ def test_hs_sweep(dev, solver, iters):
     before = jacobi.K4.launches
     u, v = jacobi.hs_level_fused(prev, warped, u0, v0, 144.0, iters=iters,
                                  solver=solver)
-    assert jacobi.K4.launches == before + iters
+    assert jacobi.K4.launches == before + math.ceil(
+        iters / jacobi.MAX_SWEEPS_PER_LAUNCH)
     if solver == "cheb":
         ur, vr = _hs_sweeps_cheb(prev, warped, u0, v0, 144.0, iters)
     else:
         ur, vr = _hs_sweeps(prev, warped, u0, v0, 144.0, iters)
     assert (u - ur).abs().max().item() <= 1e-4
     assert (v - vr).abs().max().item() <= 1e-4
+
+
+def _hs_inputs(pshape, shape, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    prev = (255 * torch.rand(pshape, generator=g)).to(dev)
+    warped = (prev + 5 * torch.randn(shape, generator=g).to(dev))
+    u0 = torch.randn(shape, generator=g).to(dev)
+    v0 = torch.randn(shape, generator=g).to(dev)
+    return prev, warped, u0, v0
+
+
+@pytest.mark.parametrize("solver,iters", [
+    ("cheb", 1), ("cheb", 2), ("cheb", 14), ("cheb", 24), ("jacobi", 60)])
+@pytest.mark.parametrize("pshape,shape", [
+    ((3, 37, 53), (3, 37, 53)), ((2, 1, 40, 56), (2, 3, 40, 56)),
+    ((1, 150, 300), (2, 150, 300)), ((12, 240, 320), (12, 240, 320))])
+def test_hs_sweep_blocked_equals_one_sweep_a_launch(dev, solver, iters,
+                                                    pshape, shape):
+    """K4's sweeps blocked in shared memory, bit for bit against one sweep
+    a launch; 60 Jacobi sweeps cross launches (3 of 20). Shapes that are
+    not multiples of the tile (100x36 at 14 sweeps), and the coarse level."""
+    prev, warped, u0, v0 = _hs_inputs(pshape, shape, dev, 4)
+    before = jacobi.K4.launches
+    u, v = jacobi.hs_level_fused(prev, warped, u0, v0, 144.0, iters=iters,
+                                 solver=solver)
+    assert jacobi.K4.launches == before + math.ceil(
+        iters / jacobi.MAX_SWEEPS_PER_LAUNCH)
+    u1, v1 = jacobi.hs_level_fused(prev, warped, u0, v0, 144.0, iters=iters,
+                                   solver=solver, _sweeps_per_launch=1)
+    assert jacobi.K4.launches == before + math.ceil(
+        iters / jacobi.MAX_SWEEPS_PER_LAUNCH) + iters
+    assert torch.equal(u, u1) and torch.equal(v, v1)
+    plain = _hs_sweeps_cheb if solver == "cheb" else _hs_sweeps
+    ur, vr = plain(prev, warped, u0, v0, 144.0, iters)
+    assert (u - ur).abs().max().item() <= 1e-4
+    assert (v - vr).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("iters", [
+    1, 2, jacobi.K6_SWEEPS_PER_LAUNCH, jacobi.K6_SWEEPS_PER_LAUNCH + 1, 60])
+@pytest.mark.parametrize("shape", [(3, 37, 53), (2, 3, 40, 56),
+                                   (12, 240, 320)])
+def test_hs_jacobi_blocked_equals_one_sweep_a_launch(dev, iters, shape):
+    """K6 blocked (S sweeps a launch) bit for bit against one sweep a
+    launch, at 1, 2, S, S + 1 and 60 sweeps."""
+    g = torch.Generator().manual_seed(8)
+    ix, iy = (8 * torch.randn(shape, generator=g)).to(dev), (
+        8 * torch.randn(shape, generator=g)).to(dev)
+    c = (20 * torch.randn(shape, generator=g)).to(dev)
+    u0 = torch.randn(shape, generator=g).to(dev)
+    v0 = torch.randn(shape, generator=g).to(dev)
+    before = jacobi.K6.launches
+    u, v = jacobi.hs_jacobi(ix, iy, c, u0, v0, 144.0, iters=iters)
+    assert jacobi.K6.launches == before + math.ceil(
+        iters / jacobi.K6_SWEEPS_PER_LAUNCH)
+    u1, v1 = jacobi.hs_jacobi(ix, iy, c, u0, v0, 144.0, iters=iters,
+                              _sweeps_per_launch=1)
+    assert torch.equal(u, u1) and torch.equal(v, v1)
+    ur, vr = jacobi.hs_jacobi_plain(ix, iy, c, u0, v0, 144.0, iters=iters)
+    assert (u - ur).abs().max().item() <= 1e-3
+    assert (v - vr).abs().max().item() <= 1e-3
+
+
+def test_hs_division_equals_ieee_over_every_float(dev):
+    """K4's and K6's branch-free x / 6 and x / 12 (csrc/hs_sweep.cu,
+    ``div_const``) against IEEE division (a tensor divisor: torch divides
+    by a scalar as a product with its reciprocal) over all 2^32 floats:
+    the same bits, signed zeros included, for every finite x whose
+    quotients are not subnormal; they may differ only there, at inf and
+    at NaN."""
+    from meshrecon_torch.kernels import library
+
+    divide = library().cdll.mr_hs_divide
+    chunk = 1 << 28
+    q6 = torch.empty(chunk, device=dev)
+    q12 = torch.empty_like(q6)
+    d6, d12 = torch.full_like(q6, 6.0), torch.full_like(q6, 12.0)
+    checked = 0
+    for start in range(0, 1 << 32, chunk):
+        bits = torch.arange(start, start + chunk, dtype=torch.int64,
+                            device=dev)
+        x = (bits - (bits >= 1 << 31).long() * (1 << 32)).to(
+            torch.int32).view(torch.float32)
+        assert divide(x.data_ptr(), q6.data_ptr(), q12.data_ptr(), chunk,
+                      torch.cuda.current_stream().cuda_stream) == 0
+        r6, r12 = x / d6, x / d12
+        ok = x.isfinite() & ((x == 0) | (r12.abs() >= 2.0 ** -126))
+        assert torch.equal(q6.view(torch.int32)[ok], r6.view(torch.int32)[ok])
+        assert torch.equal(q12.view(torch.int32)[ok],
+                           r12.view(torch.int32)[ok])
+        checked += int(ok.sum())
+    assert checked > 4.2e9
+
+
+def test_hs_kernels_refuse_more_sweeps_than_a_launch_holds(dev):
+    """The wrappers and the C entry agree on the most sweeps a launch: one
+    more is refused by both, with no fallback."""
+    prev, warped, u0, v0 = _hs_inputs((1, 40, 56), (1, 40, 56), dev, 5)
+    top = jacobi.MAX_SWEEPS_PER_LAUNCH
+    assert jacobi.block_shape(top, 480, 640)["smem_bytes"] > 48 * 1024
+    with pytest.raises(ValueError):
+        jacobi.block_shape(top + 1, 480, 640)
+    with pytest.raises(ValueError):
+        jacobi.hs_level_fused(prev, warped, u0, v0, 144.0, iters=30,
+                              solver="cheb", _sweeps_per_launch=top + 1)
+    with pytest.raises(RuntimeError, match="hs_sweep"):
+        jacobi.K4.launch(prev, warped, u0, v0, u0, v0, None, None,
+                         torch.empty_like(u0), torch.empty_like(v0), None,
+                         None, None, top + 1, 144.0, 1, 40, 56)
+    # an output that aliases an input is refused too
+    with pytest.raises(RuntimeError, match="hs_jacobi_fields"):
+        jacobi.K6.launch(u0, v0, u0, u0, v0, u0, torch.empty_like(v0), 1,
+                         144.0, 1, 40, 56)
 
 
 def _plane_coords(n, h, w, dev):
