@@ -25,7 +25,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    several sweeps a launch; each must equal the same sweeps run one a
    launch bit for bit, and is timed against them in turns, eager and from
    CUDA graphs, with its launch geometry (sweeps a launch, tile, shared
-   memory a CTA) printed; K6 also at 6-24 sweeps a launch.
+   memory a CTA) printed; K6 also at 6-24 sweeps a launch. K3's eager
+   and graph times and ``grid_sample``'s are the medians of 7 alternating
+   rounds.
    After the kernel phases: the binning phase. K1's binning is two
    kernels: SETUP (the triangle setup) bitwise against ``pack_records``
    (NaN-aware) and BIN (the tile lists) against ``bin_chunks`` at chunks 8
@@ -44,9 +46,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    Then the roofline phase: R1-R4 (the roofline probes) against their
    plain versions at the roofline tool's shapes (R1 4096x4096, R2 one
    256x512 block of 2,048 FMAs, R3 8x128 in one CTA, R4 512x128 in 64 and
-   in 1 CTAs; R1, R3, R4 bitwise, R2 1e-6 relative), with ``torch.mul`` /
-   ``torch.add`` as the library yardsticks (R3's eager us a call printed
-   beside ``torch.add``'s); then the roofline tool
+   in 1 CTAs; R1, R3, R4 bitwise, R2 1e-6 relative), R1, R3 and R4 timed
+   against ``torch.mul`` / ``torch.add``, their library yardsticks, eager
+   and from CUDA graphs in 7 alternating rounds (median and min-max
+   spread), and R3's launch path split the same way (the C entry alone
+   through ctypes and through the binding, the binding's ``launch``,
+   ``Kernel.launch``, ``add_one``, ``torch.add``); then the roofline tool
    (``meshrecon_torch.tools.roofline``) in-process, counters reset just
    before. Then the breakdown phase: the breakdown tool
    (``meshrecon_torch.tools.fused_breakdown``) at 640x480, K=3, B=1 and
@@ -99,7 +104,9 @@ float32 (``Precision.HIGHEST``).
 
 from __future__ import annotations
 
+import ctypes
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -113,6 +120,7 @@ UPDATES = 3
 VARIANT_UPDATES = 2
 SEED = 0
 GRAPH_CALLS = 100  # calls in the CUDA graph that gives a device time
+ROUNDS = 7  # alternating rounds of a kernel against its yardstick
 DEPTH0_EVENTS = 20  # the breakdown's depth0: cameras, binning, K1
 
 TRACK = "tracks/koule-tr.yaml"
@@ -163,10 +171,11 @@ def _cuda_ms(torch, fn, reps, warm_up=True):
     return start.elapsed_time(end) / reps
 
 
-def _graph_ms(torch, fn, calls=None, replays=5):
-    """Milliseconds a call on the device: ``calls`` calls of ``fn``
-    captured once in a CUDA graph (after an eager warm-up), the mean over
-    ``replays`` replays after one untimed replay."""
+def _graph_timer(torch, fn, calls=None, replays=5):
+    """A function that returns milliseconds a call on the device: ``calls``
+    calls of ``fn`` captured once in a CUDA graph (after an eager
+    warm-up), the mean over ``replays`` replays after one untimed
+    replay."""
     calls = calls or GRAPH_CALLS
     fn()
     torch.cuda.synchronize()
@@ -175,9 +184,30 @@ def _graph_ms(torch, fn, calls=None, replays=5):
         for _ in range(calls):
             fn()
     graph.replay()
-    ms = _cuda_ms(torch, graph.replay, replays, warm_up=False)
-    del graph
-    return ms / calls
+    return lambda: _cuda_ms(torch, graph.replay, replays,
+                            warm_up=False) / calls
+
+
+def _graph_ms(torch, fn, calls=None, replays=5):
+    """Milliseconds a call on the device (:func:`_graph_timer`, once)."""
+    return _graph_timer(torch, fn, calls, replays)()
+
+
+def _interleaved(label, timers, rounds=ROUNDS):
+    """Run ``timers`` (name -> a function that returns ms) in ``rounds``
+    alternating rounds (A B A B ...), since the host moves eager times
+    ~2x between calls; print each one's median and min-max spread in us
+    and return the medians in ms."""
+    got = {name: [] for name in timers}
+    for _ in range(rounds):
+        for name, fn in timers.items():
+            got[name].append(fn())
+    print(f"{label}, us a call, median [min-max] of {rounds} alternating "
+          "rounds: " + "; ".join(
+              f"{name} {statistics.median(v) * 1e3:.3f} "
+              f"[{min(v) * 1e3:.3f}-{max(v) * 1e3:.3f}]"
+              for name, v in got.items()))
+    return {name: statistics.median(v) for name, v in got.items()}
 
 
 class Results:
@@ -363,24 +393,26 @@ def kernel_phases(torch, dev, res, slice_args):
         ref = bilinear_warp(img, torch.stack([u, v], -1))
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        ms = _cuda_ms(torch, lambda: tile_warp.tile_warp_flow_batched(
-            img, u, v), 50)
         plain_ms = _cuda_ms(torch, lambda: bilinear_warp(
             img, torch.stack([u, v], -1)), 10)
         ccols = torch.arange(w, dtype=torch.float32, device=dev)
         crows = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
         grid = _grid(torch, ccols + u, crows + v)
         lib_in = img[:, None]
-        lib_ms = _cuda_ms(torch, lambda: _library_sample(
-            torch, lib_in, grid, "bilinear"), 50)
-        graph_ms = _graph_ms(torch, lambda: tile_warp.tile_warp_flow_batched(
-            img, u, v))
-        lib_graph_ms = _graph_ms(torch, lambda: _library_sample(
-            torch, lib_in, grid, "bilinear"))
-        print(f"warp_bilinear [{n}x{h}x{w}]: eager {ms:.4f} ms a call, "
-              f"device {graph_ms:.4f} ms (CUDA graph of {GRAPH_CALLS} "
-              f"calls); grid_sample eager {lib_ms:.4f} ms, device "
-              f"{lib_graph_ms:.4f} ms")
+
+        def k3():
+            return tile_warp.tile_warp_flow_batched(img, u, v)
+
+        def lib():
+            return _library_sample(torch, lib_in, grid, "bilinear")
+        t = _interleaved(
+            f"warp_bilinear [{n}x{h}x{w}] against grid_sample, eager (50 "
+            f"calls) and device (a CUDA graph of {GRAPH_CALLS} calls)",
+            {"K3 eager": lambda: _cuda_ms(torch, k3, 50),
+             "grid_sample eager": lambda: _cuda_ms(torch, lib, 50),
+             "K3 graph": _graph_timer(torch, k3),
+             "grid_sample graph": _graph_timer(torch, lib)})
+        ms, lib_ms = t["K3 eager"], t["grid_sample eager"]
         # bytes: image, u, v in, one float out; ~22 operations a pixel
         res.add(tile_warp.K3, f"{n}x{h}x{w}", err, 1e-4, ms, plain_ms,
                 work=(16 * npx, fb.K3_OPS * npx), library_ms=lib_ms)
@@ -668,12 +700,23 @@ def roofline_phase(torch, dev, res):
     x = torch.rand(rl.COPY_SHAPE, generator=gen).to(dev)
     y = torch.empty_like(x)
     err = (rl.copy_scale(x) - rl.copy_scale_plain(x)).abs().max().item()
-    ms = _cuda_ms(torch, lambda: rl.copy_scale(x, out=y), 50)
     plain_ms = _cuda_ms(torch, lambda: rl.copy_scale_plain(x), 50)
-    lib_ms = _cuda_ms(torch, lambda: torch.mul(x, rl.COPY_SCALE, out=y), 50)
+
+    def r1():
+        rl.copy_scale(x, out=y)
+
+    def mul():
+        torch.mul(x, rl.COPY_SCALE, out=y)
+    t = _interleaved(
+        "R1 copy_scale 4096x4096 against torch.mul, eager (50 calls) and "
+        f"device (a CUDA graph of {GRAPH_CALLS} calls)",
+        {"R1 eager": lambda: _cuda_ms(torch, r1, 50),
+         "torch.mul eager": lambda: _cuda_ms(torch, mul, 50),
+         "R1 graph": _graph_timer(torch, r1),
+         "torch.mul graph": _graph_timer(torch, mul)})
     # bytes: one float in, one out; one multiply an element
-    res.add(rl.R1, "4096x4096", err, 0.0, ms, plain_ms,
-            work=(8 * x.numel(), x.numel()), library_ms=lib_ms)
+    res.add(rl.R1, "4096x4096", err, 0.0, t["R1 eager"], plain_ms,
+            work=(8 * x.numel(), x.numel()), library_ms=t["torch.mul eager"])
     del x, y
 
     b = (0.999 + 0.002 * torch.rand(rl.FMA_SHAPE, generator=gen)).to(dev)
@@ -701,32 +744,49 @@ def roofline_phase(torch, dev, res):
                 return rl.add_one(c, out=out)
             return rl.add_one_grid(c, nblocks, out=out)
         err = (fn() - rl.add_one_plain(c)).abs().max().item()
-        ms = _cuda_ms(torch, lambda: fn(o), 1000)
         plain_ms = _cuda_ms(torch, lambda: rl.add_one_plain(c), 1000)
-        lib_ms = _cuda_ms(torch, lambda: torch.add(c, 1.0, out=o), 1000)
-        res.add(kernel, f"{rows}x{rl.TINY_COLS}, {nblocks} CTA(s)", err, 0.0,
-                ms, plain_ms, work=(8 * c.numel(), c.numel()),
-                library_ms=lib_ms)
-        if kernel is rl.R3:
-            print(f"R3 eager: {ms * 1e3:.2f} us a Kernel.launch call "
-                  f"(add_one, 1,000 calls), torch.add {lib_ms * 1e3:.2f} us "
-                  "a call")
+
+        def add():
+            torch.add(c, 1.0, out=o)
+        label = f"{rows}x{rl.TINY_COLS}, {nblocks} CTA(s)"
+        t = _interleaved(
+            f"{kernel.name} [{label}] against torch.add, eager (1,000 "
+            f"calls) and device (a CUDA graph of {GRAPH_CALLS} calls)",
+            {"kernel eager": lambda: _cuda_ms(torch, lambda: fn(o), 1000),
+             "torch.add eager": lambda: _cuda_ms(torch, add, 1000),
+             "kernel graph": _graph_timer(torch, lambda: fn(o)),
+             "torch.add graph": _graph_timer(torch, add)})
+        res.add(kernel, label, err, 0.0, t["kernel eager"], plain_ms,
+                work=(8 * c.numel(), c.numel()),
+                library_ms=t["torch.add eager"])
 
     # R3's launch path, split: host-bound eager loops on one (8, 128) pair
     c = torch.zeros((rl.TINY_ROWS, rl.TINY_COLS), device=dev)
     o = torch.empty_like(c)
-    entry = getattr(library().cdll, rl.R3.entry)
+    lib = library()
+    # the C entry through ctypes, as launches went before the binding
+    entry = ctypes.CDLL(str(lib.path))[rl.R3.entry]
+    entry.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    bound = getattr(lib.ext, rl.R3.entry)
     args = (c.data_ptr(), o.data_ptr(), rl.TINY_ROWS, 1,
             torch.cuda.current_stream(dev).cuda_stream)
-    split = {"C entry alone (ctypes; the CUDA launch inside)":
-             lambda: entry(*args),
-             "Kernel.launch": lambda: rl.R3.launch(c, o, rl.TINY_ROWS, 1),
-             "add_one (the wrapper's checks, then Kernel.launch)":
-             lambda: rl.add_one(c, out=o),
-             "torch.add(out=)": lambda: torch.add(c, 1.0, out=o)}
-    print("R3 launch path, us a call (5,000 eager calls each): " + ", ".join(
-        f"{name} {_cuda_ms(torch, fn, 5000) * 1e3:.2f}"
-        for name, fn in split.items()))
+    _interleaved("R3 launch path (5,000 eager calls a round)", {
+        "C entry alone through ctypes (the CUDA launch inside)":
+        lambda: _cuda_ms(torch, lambda: entry(*args), 5000),
+        "C entry alone through the binding":
+        lambda: _cuda_ms(torch, lambda: bound(*args), 5000),
+        "the binding's launch (device, stream, entry, capture state)":
+        lambda: _cuda_ms(torch, lambda: lib.ext.launch(bound, c, o,
+                                                       rl.TINY_ROWS, 1),
+                         5000),
+        "Kernel.launch":
+        lambda: _cuda_ms(torch, lambda: rl.R3.launch(c, o, rl.TINY_ROWS, 1),
+                         5000),
+        "add_one (the wrapper's checks, then Kernel.launch)":
+        lambda: _cuda_ms(torch, lambda: rl.add_one(c, out=o), 5000),
+        "torch.add(out=)":
+        lambda: _cuda_ms(torch, lambda: torch.add(c, 1.0, out=o), 5000)})
 
     for k in all_kernels():
         k.launches = 0

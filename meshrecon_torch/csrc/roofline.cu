@@ -7,11 +7,18 @@
 // port's tool reads the same quantities on the card.
 //
 // R1 (mr_roofline_copy): o = x * 1.0000001f over n floats. Bound by bytes:
-// each element read once and written once. Design: a grid-stride loop over
-// 16-byte (float4) loads and stores, consecutive threads on consecutive
-// addresses, a few hundred thousand threads in flight; the tail of n % 4
-// floats goes to the first threads one float each. The wrapper requires
-// 16-byte aligned pointers.
+// each element read once and written once, 64 MiB each way at the tool's
+// shape, more than the 50 MB L2, so the stream runs from HBM. Design: each
+// CTA of 256 threads owns one whole chunk of 512 float4s (8 KiB); each
+// thread issues its 2 float4 loads before any store, with streaming hints
+// (__ldcs / __stcs: evict-first, the data is touched once). No thread walks
+// a stride: the grid is the chunk count (8,192 CTAs at the tool's shape).
+// Of the variants timed on the card (PERF.md), 2, 4 or 8 loads a thread
+// and 128-1,024 threads a CTA lie within 1%, 2 loads of 256 threads the
+// fastest; a persistent grid of 4 or 8 CTAs an SM lost ~5%, and a
+// persistent CTA an SM streaming through a ring of bulk copies (TMA) in
+// shared memory ~10%. The tail of n % 4 floats goes to the first threads
+// of CTA 0, one float each. The wrapper requires 16-byte aligned pointers.
 //
 // R2 (mr_roofline_fma): one thread per element; each keeps x and acc in
 // registers and runs `inner` dependent acc = fma(acc, x, 1e-7f) from
@@ -24,41 +31,71 @@
 // (256, 512), not enlarged.
 //
 // R3 and R4 (mr_roofline_tiny): o = x + 1.0f over (rows, 128) in nblocks
-// CTAs of 128 threads, CTA b taking rows [b * rows / nblocks, (b + 1) *
-// rows / nblocks), thread t its column t. R3 is 8 rows in one CTA: the
-// cost of a launch. R4 is 512 rows in 1 and in 64 CTAs: on the TPU a grid
-// step runs after the last on one core; here the CTAs run in parallel on
-// the 132 SMs, so the 64-CTA launch measures that parallelism, not a
-// sequential step.
+// CTAs, CTA b taking rows [b * rows / nblocks, (b + 1) * rows / nblocks).
+// R3 is 8 rows in one CTA: the cost of a launch. R4 is 512 rows in 1 and in
+// 64 CTAs: on the TPU a grid step runs after the last on one core; here the
+// CTAs run in parallel on the 132 SMs, so the 64-CTA launch measures that
+// parallelism, not a sequential step. Design: a row is 32 float4s, one warp.
+// A CTA of up to 1,024 float4s (32 rows: R3, R4 at 64 CTAs) has one thread
+// a float4 and no loop, the least a launch can carry; a larger one has
+// 1,024 threads, each issuing 8 independent float4 loads before their
+// stores, so one CTA walks 512 rows in 2 rounds of loads, not 128
+// dependent ones, and is bound by one SM's share of the L2 bandwidth, not
+// by load latency. The entry refuses pointers that are not 16-byte aligned.
 #include <algorithm>
+#include <climits>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kCopyUnroll = 2;                       // float4 loads a thread
+constexpr int kCopyChunk = kThreads * kCopyUnroll;   // float4s a CTA
 constexpr int kTinyCols = 128;
-constexpr int kMaxCopyBlocks = 132 * 16;
+constexpr int kTinyRow4 = kTinyCols / 4;             // float4s a row
+constexpr int kTinyMaxThreads = 1024;
+constexpr int kTinyBatch = 8;                        // float4 loads a thread
+
+__device__ __forceinline__ float4 scale4(float4 v) {
+  const float scale = 1.0000001f;
+  v.x = v.x * scale;
+  v.y = v.y * scale;
+  v.z = v.z * scale;
+  v.w = v.w * scale;
+  return v;
+}
+
+__device__ __forceinline__ void copy_tail(const float* __restrict__ x,
+                                          float* __restrict__ o,
+                                          long long n) {
+  const long long i = (n & ~3LL) + threadIdx.x;
+  if (blockIdx.x == 0 && i < n) o[i] = x[i] * 1.0000001f;
+}
 
 __global__ void __launch_bounds__(kThreads)
 roofline_copy_kernel(const float* __restrict__ x, float* __restrict__ o,
                      long long n) {
-  const float scale = 1.0000001f;
   const long long n4 = n / 4;
-  const long long stride = (long long)gridDim.x * kThreads;
-  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* o4 = reinterpret_cast<float4*>(o);
-  for (long long i = first; i < n4; i += stride) {
-    float4 v = x4[i];
-    v.x = v.x * scale;
-    v.y = v.y * scale;
-    v.z = v.z * scale;
-    v.w = v.w * scale;
-    o4[i] = v;
+  const long long base = (long long)blockIdx.x * kCopyChunk + threadIdx.x;
+  const float4* x4 = reinterpret_cast<const float4*>(x) + base;
+  float4* o4 = reinterpret_cast<float4*>(o) + base;
+  float4 v[kCopyUnroll];
+  if (base + (kCopyUnroll - 1) * kThreads < n4) {
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) v[k] = __ldcs(x4 + k * kThreads);
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k)
+      __stcs(o4 + k * kThreads, scale4(v[k]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k)
+      if (base + k * kThreads < n4) v[k] = __ldcs(x4 + k * kThreads);
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k)
+      if (base + k * kThreads < n4) __stcs(o4 + k * kThreads, scale4(v[k]));
   }
-  const long long tail = 4 * n4 + first;
-  if (tail < n) o[tail] = x[tail] * scale;
+  copy_tail(x, o, n);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -73,16 +110,41 @@ roofline_fma_kernel(const float* __restrict__ x, float* __restrict__ o,
   o[i] = acc;
 }
 
-__global__ void __launch_bounds__(kTinyCols)
-roofline_tiny_kernel(const float* __restrict__ x, float* __restrict__ o,
-                     int rows_per_block) {
-  const long long base =
-      (long long)blockIdx.x * rows_per_block * kTinyCols + threadIdx.x;
-#pragma unroll 4
-  for (int r = 0; r < rows_per_block; ++r) {
-    const long long i = base + (long long)r * kTinyCols;
-    o[i] = x[i] + 1.0f;
+__device__ __forceinline__ float4 add_one4(float4 v) {
+  v.x = v.x + 1.0f;
+  v.y = v.y + 1.0f;
+  v.z = v.z + 1.0f;
+  v.w = v.w + 1.0f;
+  return v;
+}
+
+// A CTA of per_block float4s: kBatch 1 takes one a thread (per_block
+// threads, no loop: R3 and R4 at 64 CTAs); kBatch 8 walks the CTA's rows in
+// rounds of 8 loads a thread (1,024 threads: R4 at one CTA).
+template <int kBatch>
+__global__ void __launch_bounds__(kTinyMaxThreads)
+roofline_tiny_kernel(const float4* __restrict__ x, float4* __restrict__ o,
+                     int per_block) {
+  x += (long long)blockIdx.x * per_block;
+  o += (long long)blockIdx.x * per_block;
+  if (kBatch == 1) {
+    o[threadIdx.x] = add_one4(x[threadIdx.x]);
+    return;
   }
+  const int step = blockDim.x;
+  int first = threadIdx.x;
+  for (; first + (kBatch - 1) * step < per_block; first += kBatch * step) {
+    float4 v[kBatch];  // a whole batch: no bounds checks
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) v[k] = x[first + k * step];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) o[first + k * step] = add_one4(v[k]);
+  }
+  for (; first < per_block; first += step) o[first] = add_one4(x[first]);
+}
+
+bool misaligned(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) & 15;
 }
 
 }  // namespace
@@ -90,14 +152,12 @@ roofline_tiny_kernel(const float* __restrict__ x, float* __restrict__ o,
 // x, o: n floats, 16-byte aligned
 MR_EXPORT int mr_roofline_copy(const float* x, float* o, int n,
                                void* stream) {
-  if (n < 0 || (reinterpret_cast<unsigned long long>(x) & 15) ||
-      (reinterpret_cast<unsigned long long>(o) & 15))
+  if (n < 0 || misaligned(x) || misaligned(o))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const int blocks = std::min(
-      std::max(mr_blocks((long long)n / 4, kThreads), 1), kMaxCopyBlocks);
+  const int blocks = std::max(mr_blocks((long long)n / 4, kCopyChunk), 1);
   roofline_copy_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(x, o,
-                                                                        n);
+                                                                      n);
   return (int)cudaGetLastError();
 }
 
@@ -111,12 +171,21 @@ MR_EXPORT int mr_roofline_fma(const float* x, float* o, int n, int inner,
   return (int)cudaGetLastError();
 }
 
-// x, o: (rows, 128) floats, rows a multiple of nblocks
+// x, o: (rows, 128) floats, 16-byte aligned, rows a multiple of nblocks
 MR_EXPORT int mr_roofline_tiny(const float* x, float* o, int rows,
                                int nblocks, void* stream) {
-  if (rows < 1 || nblocks < 1 || rows % nblocks)
+  if (rows < 1 || rows > INT_MAX / kTinyCols || nblocks < 1 ||
+      rows % nblocks || misaligned(x) || misaligned(o))
     return (int)cudaErrorInvalidValue;
-  roofline_tiny_kernel<<<nblocks, kTinyCols, 0, (cudaStream_t)stream>>>(
-      x, o, rows / nblocks);
+  const int per_block = rows / nblocks * kTinyRow4;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(o);
+  if (per_block <= kTinyMaxThreads)
+    roofline_tiny_kernel<1><<<nblocks, per_block, 0, (cudaStream_t)stream>>>(
+        x4, o4, per_block);
+  else
+    roofline_tiny_kernel<kTinyBatch><<<nblocks, kTinyMaxThreads, 0,
+                                       (cudaStream_t)stream>>>(x4, o4,
+                                                               per_block);
   return (int)cudaGetLastError();
 }

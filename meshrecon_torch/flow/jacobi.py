@@ -122,8 +122,10 @@ def hs_level_fused(prev, warped, u0, v0, alpha2: float, iters: int = 60,
         out = bufs[per_set * (j % 2):per_set * (j % 2 + 1)]
         last = j == len(sizes) - 1
         out_up, out_vp = (None, None) if last or not cheb else out[2:4]
+        # the schedule passes as the host array's address (None: Jacobi)
         K4.launch(a, b, u0, v0, u, v, up, vp, out[0], out[1], out_up,
-                  out_vp, coeffs, s, float(alpha2), n, h, w)
+                  out_vp, None if coeffs is None else ctypes.addressof(coeffs),
+                  s, float(alpha2), n, h, w)
         u, v, up, vp = out[0], out[1], out_up, out_vp
     return u.reshape(shape), v.reshape(shape)
 

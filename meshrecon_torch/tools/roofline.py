@@ -153,7 +153,7 @@ def copy_scale(x, out=None):
     out = _prepare("copy_scale", x, out)
     if not x.is_cuda:
         return out.copy_(copy_scale_plain(x))
-    if x.data_ptr() % 16 or out.data_ptr() % 16:
+    if (x.data_ptr() | out.data_ptr()) % 16:
         raise ValueError("copy_scale: the kernel takes 16-byte aligned "
                          "tensors (float4 loads and stores)")
     R1.launch(x, out, x.numel())
@@ -173,16 +173,20 @@ def fma_chain(x, inner: int = INNER, out=None):
 
 
 def _add_one(kernel, name, x, nblocks, out):
-    if x.dim() != 2 or x.shape[1] != TINY_COLS:
+    shape = x.shape
+    if len(shape) != 2 or shape[1] != TINY_COLS:
         raise ValueError(f"{name}: takes (rows, {TINY_COLS}), got "
-                         f"{tuple(x.shape)}")
-    if nblocks < 1 or x.shape[0] % nblocks:
-        raise ValueError(f"{name}: {x.shape[0]} rows do not split into "
+                         f"{tuple(shape)}")
+    if nblocks < 1 or shape[0] % nblocks:
+        raise ValueError(f"{name}: {shape[0]} rows do not split into "
                          f"{nblocks} blocks")
     out = _prepare(name, x, out)
     if not x.is_cuda:
         return out.copy_(add_one_plain(x))
-    kernel.launch(x, out, x.shape[0], nblocks)
+    if (x.data_ptr() | out.data_ptr()) % 16:
+        raise ValueError(f"{name}: the kernel takes 16-byte aligned tensors "
+                         "(float4 loads and stores)")
+    kernel.launch(x, out, shape[0], nblocks)
     return out
 
 

@@ -196,42 +196,51 @@ def test_cpu_path_is_the_plain_version(per_launch):
 
 
 class _Entry:
-    def __init__(self):
+    def __init__(self, name):
+        self.name = name
         self.calls = []
 
     def __call__(self, *args):
-        # the schedule is a host array: read it while the call lasts
-        args = tuple(list(a) if isinstance(a, ctypes.Array) else a
-                     for a in args)
-        self.calls.append(args)
+        # tensors as data_ptr(), as the binding passes them on; K4's
+        # schedule is a host array's address (argument 12, 2 floats a
+        # sweep): read it while the call lasts
+        args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        if self.name == "mr_hs_sweep" and args[12] is not None:
+            args[12] = list((ctypes.c_float * (2 * args[13])).from_address(
+                args[12]))
+        self.calls.append(tuple(args))
         return 0
 
 
-class _CDLL:
+class _Binding:
     def __init__(self):
         self.entries = {}
+
+    @staticmethod
+    def launch(fn, *args):
+        """The C launch on device 0, stream 0, never capturing."""
+        return fn(*args, 0), False
 
     def __getattr__(self, name):
         if name.startswith("_"):
             raise AttributeError(name)
-        return self.entries.setdefault(name, _Entry())
+        return self.entries.setdefault(name, _Entry(name))
 
 
 @pytest.fixture
 def stub(monkeypatch):
     """The wrappers' card path against a stub library: tensors on the CPU
-    pass as device 0, and the C entries record their arguments."""
-    cdll = _CDLL()
+    pass as device 0, and the binding's functions record their
+    arguments."""
+    ext = _Binding()
     monkeypatch.setattr(_build, "library",
-                        lambda: _build.Library(cdll, None, 0.0, ""))
-    monkeypatch.setattr(_build, "_current_device", lambda: 0)
-    monkeypatch.setattr(_build, "_raw_stream", lambda index: 0)
-    monkeypatch.setattr(_build, "_capturing", lambda: False)
+                        lambda: _build.Library(None, ext, None, 0.0, ""))
     monkeypatch.setattr(torch.Tensor, "get_device", lambda self: 0)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     for k in (jacobi.K4, jacobi.K6):
         monkeypatch.setattr(k, "_fn", None)
-    return cdll
+    return ext
 
 
 @pytest.mark.parametrize("solver,iters,per_launch", [

@@ -497,7 +497,7 @@ def test_hs_division_equals_ieee_over_every_float(dev):
     at NaN."""
     from meshrecon_torch.kernels import library
 
-    divide = library().cdll.mr_hs_divide
+    divide = library().ext.mr_hs_divide
     chunk = 1 << 28
     q6 = torch.empty(chunk, device=dev)
     q12 = torch.empty_like(q6)
@@ -683,9 +683,12 @@ def test_cli_variants_on_gpu(dev, tmp_path, flags, kernels):
         assert launches[k.name] > 0, name
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (4096, 4096), (3, 1001)])
+@pytest.mark.parametrize("shape", [
+    (1,), (3,), (4,), (5,), (1023,), (8, 128), (4096, 4096), (3, 1001),
+    (3 * 4096 + 1028,), ((1 << 20) + 20,)])
 def test_roofline_copy(dev, shape):
-    """R1, with a tail of n % 4 elements past the float4 loads."""
+    """R1, with a tail of n % 4 elements past the float4 loads, and a last
+    CTA's chunk cut short (the last two shapes)."""
     x = torch.rand(shape, generator=torch.Generator().manual_seed(8)).to(dev)
     before = roofline.R1.launches
     out = roofline.copy_scale(x)
@@ -704,9 +707,13 @@ def test_roofline_fma(dev, shape, inner):
     assert ((out - ref).abs() / ref.abs()).max().item() <= 1e-6
 
 
-@pytest.mark.parametrize("rows,nblocks", [(8, 1), (512, 1), (512, 64)])
+@pytest.mark.parametrize("rows,nblocks", [
+    (8, 1), (8, 2), (8, 8), (40, 1), (64, 2), (64, 64), (264, 1), (296, 2),
+    (512, 1), (512, 2), (512, 8), (512, 64)])
 def test_roofline_tiny(dev, rows, nblocks):
-    """R3 (one CTA) and R4 (a grid of CTAs), each on its own counter."""
+    """R3 (one CTA) and R4 (a grid of CTAs), each on its own counter; CTAs
+    of more float4s than threads (40 rows and up in one CTA), with a last
+    batch of loads cut short (264 and 296 rows)."""
     x = torch.randn((rows, 128), generator=torch.Generator().manual_seed(
         10)).to(dev)
     counts = (roofline.R3.launches, roofline.R4.launches)
@@ -731,6 +738,43 @@ def test_roofline_wrappers_refuse(dev):
         roofline.add_one_grid(x, 3)
     with pytest.raises(ValueError):
         roofline.fma_chain(x.double())
+
+
+def test_roofline_tiny_refuses_misaligned_pointers(dev):
+    """R3's and R4's float4 rows need 16-byte aligned tensors: the
+    wrappers raise, and so does the C entry, launching nothing."""
+    flat = torch.zeros(9 * 128, device=dev)
+    x, ok = flat[1:1 + 8 * 128].view(8, 128), flat[:8 * 128].view(8, 128)
+    counts = (roofline.R3.launches, roofline.R4.launches)
+    for a, b in ((x, ok), (ok, x)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            roofline.add_one(a, out=b)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            roofline.add_one_grid(a, 2, out=b)
+        with pytest.raises(RuntimeError, match="roofline_tiny"):
+            roofline.R3.launch(a, b, 8, 1)
+    assert (roofline.R3.launches, roofline.R4.launches) == counts
+
+
+def test_a_failed_binding_import_raises(dev, monkeypatch):
+    """No fallback: with the binding's import patched to fail, a launch
+    raises and nothing is launched (the library has no other path)."""
+    from meshrecon_torch.kernels import _build
+
+    def broken(path):
+        raise ImportError("the binding's import patched to fail")
+
+    x = torch.zeros((8, 128), device=dev)
+    before = roofline.R3.launches
+    _build.library.cache_clear()
+    monkeypatch.setattr(_build, "import_binding", broken)
+    monkeypatch.setattr(roofline.R3, "_fn", None)
+    try:
+        with pytest.raises(ImportError, match="patched to fail"):
+            roofline.add_one(x)
+    finally:
+        _build.library.cache_clear()
+    assert roofline.R3.launches == before
 
 
 def test_graph_capture_is_not_counted(dev):

@@ -1,10 +1,14 @@
 """``Kernel.launch``'s path on the CPU, with a stub library in place of the
-built one: what reaches the C entry, when it raises, and what it counts.
+built one: what reaches the binding's function, when it raises, and what
+it counts.
 
-The stub stands in for ``_build.library`` and the three device helpers
-(``_current_device``, ``_raw_stream``, ``_capturing``), so no CUDA device
-or nvcc is needed; ``torch.Tensor.get_device`` is patched to say device 0.
-The card's own launches are checked in test_torch_kernels_cuda.py.
+The stub stands in for ``_build.library`` (its extension module's launch
+functions, and ctypes' ``mr_error_string``) and the three device helpers
+(``_current_device``, ``_raw_stream``, ``_capturing``), so no CUDA device,
+nvcc or g++ is needed; ``torch.Tensor.get_device`` is patched to say
+device 0. test_torch_bind.py holds the binding itself against a stub C
+library; the card's own launches are checked in
+test_torch_kernels_cuda.py.
 """
 
 import pytest
@@ -25,32 +29,47 @@ class _Entry:
         return self.code
 
 
-class _CDLL:
-    """Entries by name; counts how often each is looked up."""
+class _Binding:
+    """The extension module's entry functions by name (counting how often
+    each is looked up), and its ``launch`` by the C function's contract
+    (test_torch_bind.py holds the C function to it)."""
 
     def __init__(self, code=0):
         self.lookups = {}
         self.entries = {}
         self.code = code
 
+    @staticmethod
+    def launch(fn, *args):
+        """(status, capturing) on the current device, else None."""
+        index = args[0].get_device()
+        if index < 0 or index != _build._current_device():
+            return None
+        return fn(*args, _build._raw_stream(index)), _build._capturing()
+
     def __getattr__(self, name):
         if name.startswith("_"):
             raise AttributeError(name)
         self.lookups[name] = self.lookups.get(name, 0) + 1
-        if name == "mr_error_string":
-            return lambda code: f"stub error {code}".encode()
         return self.entries.setdefault(name, _Entry(self.code))
+
+
+class _CDLL:
+    """ctypes' side of the library: the error text only."""
+
+    def mr_error_string(self, code):
+        return f"stub error {code}".encode()
 
 
 @pytest.fixture
 def stub(monkeypatch):
     """A fresh registry and a stub library; returns the stub's state (its
-    CDLL, the library() calls, the capture flag)."""
-    state = {"library": 0, "capturing": False, "cdll": _CDLL()}
+    binding, the library() calls, the capture flag)."""
+    state = {"library": 0, "capturing": False, "ext": _Binding()}
 
     def library():
         state["library"] += 1
-        return _build.Library(state["cdll"], None, 0.0, "")
+        return _build.Library(_CDLL(), state["ext"], None, 0.0, "")
 
     monkeypatch.setattr(_build, "_REGISTRY", [])
     monkeypatch.setattr(_build, "library", library)
@@ -65,12 +84,14 @@ def test_arguments_reach_the_entry_in_order_with_the_stream_last(stub):
     k = _build.Kernel("probe", "mr_roofline_tiny", "src", "ref")
     x, out = torch.zeros(8, 128), torch.empty(8, 128)
     k.launch(x, out, 8, 1)
-    (call,) = stub["cdll"].entries["mr_roofline_tiny"].calls
-    assert call == (x.data_ptr(), out.data_ptr(), 8, 1, STREAM)
+    (call,) = stub["ext"].entries["mr_roofline_tiny"].calls
+    # the tensors themselves: the binding reads their data_ptr()
+    assert call[0] is x and call[1] is out
+    assert call[2:] == (8, 1, STREAM)
 
 
 def test_nonzero_code_raises_with_the_error_text(stub):
-    stub["cdll"].code = 700
+    stub["ext"].code = 700
     k = _build.Kernel("probe", "mr_warp_bilinear", "src", "ref")
     x = torch.zeros(2, 4, 4)
     with pytest.raises(RuntimeError, match="probe.*700.*stub error 700"):
@@ -86,7 +107,7 @@ def test_a_launch_counts_once_and_the_entry_resolves_once(stub):
         k.launch(x, x, 16)
     assert (k.launches, other.launches) == (3, 0)
     assert stub["library"] == 1
-    assert stub["cdll"].lookups == {"mr_roofline_copy": 1}
+    assert stub["ext"].lookups == {"mr_roofline_copy": 1}
     assert _build.all_kernels() == [k, other]
 
 
@@ -96,7 +117,7 @@ def test_a_launch_under_capture_is_not_counted(stub):
     stub["capturing"] = True
     k.launch(x, x, 16)
     assert k.launches == 0
-    assert len(stub["cdll"].entries["mr_roofline_copy"].calls) == 1
+    assert len(stub["ext"].entries["mr_roofline_copy"].calls) == 1
     stub["capturing"] = False
     k.launch(x, x, 16)
     assert k.launches == 1
@@ -109,7 +130,7 @@ def test_a_cpu_first_argument_is_refused(stub, monkeypatch):
     with pytest.raises(ValueError, match="probe"):
         k.launch(x, x, 16)
     assert k.launches == 0
-    assert not stub["cdll"].entries["mr_roofline_copy"].calls
+    assert not stub["ext"].entries["mr_roofline_copy"].calls
 
 
 def test_unknown_entry_is_refused():
