@@ -2,6 +2,7 @@
 """Chip check of meshrecon_torch, the PyTorch / CUDA port, on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+    [--parent-raster PARENT/meshrecon_torch/csrc/raster.cu]
 
 1. Prints the device (``torch.cuda.get_device_name`` and nvidia-smi's name
    and power limit); exits non-zero without a CUDA device.
@@ -40,7 +41,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    16,384- and 65,536-triangle spheres and the fused problem's soup at
    640x480, with the binning's and the kernel's ms apart; K1's wrapper as
    setup + bin + kernel alone and the peak memory of both binnings and of
-   the plain one at 16 cameras; then the raster sweep tool
+   the plain one at 16 cameras. For each of these cases (K5 at 1, 4 and 16
+   cameras, K1 at 16) the coverage walk's counts (the sweep tool's
+   ``walk_counts``: candidate records, tile and warp hits, coverage tests
+   against the first design's, the longest tile and warp walks) and
+   the kernel alone from a CUDA graph of 20 calls in 7 alternating rounds,
+   through ctypes, bitwise against ``render_depth``; with
+   ``--parent-raster`` against the parent's kernels (that raster.cu built
+   apart with the same flags) in the same rounds. Then the raster sweep tool
    (``meshrecon_torch.tools.raster_sweep``) at its defaults with chunks 8
    and 16.
    Then the roofline phase: R1-R4 (the roofline probes) against their
@@ -104,6 +112,7 @@ float32 (``Precision.HIGHEST``).
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import statistics
@@ -586,19 +595,115 @@ def binning_phase(torch, dev, res, slice_args):
             del plain_cbox
 
 
-def raster_phase(torch, dev, res, slice_args):
+RASTER_GRAPH_CALLS = 20  # raster calls in a CUDA graph of the raster phase
+
+
+def build_parent_raster(src):
+    """Build another tree's ``csrc/raster.cu`` (the parent commit's) alone,
+    with the port's nvcc flags, into build/chip_smoke/ and load it through
+    ctypes (its entries have this tree's signatures); prints the
+    compiler's register report."""
+    from meshrecon_torch.kernels import _build
+
+    out = Path("build/chip_smoke/parent_raster.so").resolve()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                           "-o", str(out), str(Path(src).resolve())],
+                          capture_output=True, text=True, timeout=600)
+    if done.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{done.stderr}")
+    print(f"build: {src} (parent), {time.perf_counter() - t0:.1f} s")
+    for line in (done.stdout + done.stderr).splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print(f"ptxas (parent): {line.strip()}")
+    return ctypes.CDLL(str(out))
+
+
+def _raster_entry(torch, lib, bins):
+    """A call of ``lib``'s K1 (one-level ``bins``) or K5 entry on ``bins``
+    through ctypes, into an output made once: what the kernel alone does,
+    with no wrapper and no count. Returns (call, out)."""
+    from meshrecon_torch.kernels._build import _SIGNATURES
+    from meshrecon_torch.raster import binned
+
+    packed, lists, counts = bins["packed"], bins["lists"], bins["counts"]
+    n, n_rec = packed.shape[0], packed.shape[-1]
+    h, w = bins["height"], bins["width"]
+    out = torch.empty((n, h, w), dtype=torch.float32, device=packed.device)
+    ptrs = [t.data_ptr() for t in (*bins["grid"], *bins["tiles"], out)]
+    name = "mr_raster_tiles" if bins["cbox"] is None else "mr_raster_tiles2"
+    fn = getattr(lib, name)
+    fn.argtypes = [{"P": ctypes.c_void_p, "I": ctypes.c_int}[kind]
+                   for kind in _SIGNATURES[name]]
+    fn.restype = ctypes.c_int
+    if bins["cbox"] is None:
+        args = [packed.data_ptr(), lists.data_ptr(), counts.data_ptr(), *ptrs,
+                n, n_rec, lists.shape[-1], h, w, binned.TILE, bins["chunk"]]
+    else:
+        args = [packed.data_ptr(), bins["cbox"].data_ptr(), lists.data_ptr(),
+                counts.data_ptr(), *ptrs, n, n_rec, lists.shape[-1], h, w,
+                binned.TILE, bins["chunk"], bins["supers"]]
+
+    def call():
+        code = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"{name}: CUDA error {code}")
+
+    return call, out
+
+
+def _walk_line(label, bins):
+    """Print the coverage walk's counts on ``bins`` (raster_sweep's
+    ``walk_counts``, torch ops on the card)."""
+    from meshrecon_torch.tools.raster_sweep import walk_counts
+
+    c = walk_counts(bins)
+    print(f"walk [{label}]: records {c['records']}, tile hits "
+          f"{c['tile_hits']}, warp hits {c['warp_hits']}, coverage tests "
+          f"{c['coverage_tests']} (first design {c['first_design_tests']}, "
+          f"x{c['first_design_tests'] / max(c['coverage_tests'], 1):.2f} "
+          f"fewer), longest tile walk {c['longest_walk']}, longest warp "
+          f"walk {c['longest_warp']}")
+
+
+def _kernel_rounds(torch, label, bins, ref, libs):
+    """The kernel alone on ``bins`` through each of ``libs`` (name -> a
+    ctypes library with the raster entries: this tree's, the parent's),
+    from a CUDA graph of RASTER_GRAPH_CALLS calls each, in 7 alternating
+    rounds; each output must equal ``ref`` bit for bit."""
+    timers, outs = {}, []
+    for name, lib in libs.items():
+        call, out = _raster_entry(torch, lib, bins)
+        outs.append(out)  # a graph's output lives as long as its replays
+        call()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{label}: the {name} kernel differs from "
+                                 "render_depth")
+        timers[name] = _graph_timer(torch, call, RASTER_GRAPH_CALLS, 3)
+    _interleaved(f"kernel alone, graph [{label}]", timers)
+
+
+def raster_phase(torch, dev, res, slice_args, parent=None):
     """K5 (the two-level raster) against ``render_depth``, bitwise, through
     both of its wrappers: K5a at one camera, K5b at 4 and at the flow
     update's 16 cameras, on the 16,384- and 65,536-triangle spheres and the
     fused problem's soup at 640x480; each with its wrapper, binning and
     kernel ms, and K1's split and both binnings' peak memory at 16 cameras.
+    For each case (and K1 at 16 cameras) the coverage walk's counts, and
+    the kernel alone from a CUDA graph in 7 alternating rounds against the
+    kernels of ``parent`` (the parent's raster.cu, built apart) when given.
     Then the raster sweep tool at its defaults with chunks 8 and 16, its
     launch counts reset just before: returns them (K5a's and K5b's path)."""
     from meshrecon_torch import problems, state
-    from meshrecon_torch.kernels import all_kernels
+    from meshrecon_torch.kernels import all_kernels, library
     from meshrecon_torch.raster import binned, rasterizer
     from meshrecon_torch.tools import raster_sweep
 
+    libs = {"new": library().cdll}
+    if parent is not None:
+        libs["parent"] = parent
     cams16 = torch.cat([slice_args[2][:, None], slice_args[4]], 1).reshape(
         B * (K + 1), 4, 4)
     soups = [(f"{2 * nt * nph} tris", state.pack_soup(
@@ -638,6 +743,11 @@ def raster_phase(torch, dev, res, slice_args):
             print(f"{kernel.name} [{label}]: covered share {covered:.4f}; "
                   f"binning {bin_ms:.4f} ms, kernel alone {kern_ms:.4f} ms "
                   f"(list table {bins['lists'].numel()} entries)")
+            _walk_line(f"{kernel.name}, {label}", bins)
+            _kernel_rounds(torch, f"{kernel.name}, {label}", bins, ref,
+                           libs)
+            if ncam == len(cams16):
+                ref16 = ref
             del bins
             res.add(kernel, label, err, 0.0, ms, plain_ms,
                     work=_raster_work(ncam, soup, valid, covered))
@@ -656,6 +766,9 @@ def raster_phase(torch, dev, res, slice_args):
         k1_lists = _cuda_ms(torch, lambda: binned.tile_lists(cbox, H, W), 10)
         k1_kern = _cuda_ms(torch, lambda: binned.raster_binned(binned.K1,
                                                                bins), 10)
+        label = f"{binned.K1.name}, {len(cams)}x{H}x{W}, {soup_label}"
+        _walk_line(label, bins)
+        _kernel_rounds(torch, label, bins, ref16, libs)
         del bins, cbox
         mem1 = _peak_mb(torch, lambda: binned.bin_soup(cams, soup, valid, H,
                                                        W))
@@ -1260,7 +1373,15 @@ def run_e2e(torch, dev, label, flags, path):
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Chip check of meshrecon_torch on one GPU.")
+    parser.add_argument(
+        "--parent-raster", metavar="RASTER_CU",
+        help="the parent commit's meshrecon_torch/csrc/raster.cu (from an "
+             "unpacked copy of that tree): its K1 and K5, built apart, are "
+             "timed against this tree's in the raster phase")
+    args = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1311,8 +1432,11 @@ def main() -> int:
     res = Results()
     kernel_phases(torch, dev, res, state.from_numpy(args_np, dev))
     binning_phase(torch, dev, res, state.from_numpy(args_np, dev))
+    parent = None
+    if args.parent_raster:
+        parent = build_parent_raster(args.parent_raster)
     raster_launches = raster_phase(torch, dev, res,
-                                   state.from_numpy(args_np, dev))
+                                   state.from_numpy(args_np, dev), parent)
     roof, roof_launches = roofline_phase(torch, dev, res)
     breakdown_phase(torch, dev, roof["launch_graph_us"])
     k3b_phase(torch, dev, res)

@@ -10,31 +10,47 @@
 // meshrecon_torch.raster.rasterizer.render_depth: NDC depth, background
 // 1.0, bit for bit.
 //
-// What bounds them here: the per-(pixel, triangle) coverage test, about 20
-// flops for every triangle that reaches it, so the work is the sum over
-// tiles of those triangles times 256 pixels. Device-memory traffic is small
-// (16 floats per staged triangle per tile, one float out per pixel).
+// What bounds them: not bytes (16 floats per listed record and tile at
+// most, one float out per pixel) but the walk of each tile's list. A listed
+// record is rarely near a given pixel: on a 16k-triangle sphere at 480x640
+// only ~22% of the records a tile lists reach the tile's box, and a
+// triangle covers ~10 pixels. The first design tested every listed record
+// at every pixel of its tile: ~520 M per-pixel box tests and ~115 M
+// coverage tests for 16 cameras.
 //
-// Design: the binning (raster/binned.py::bin_soup: on the card the SETUP and
-// BIN kernels of csrc/raster_setup.cu) bins chunks of `chunk` records (8,
-// 16, 32 or 64; a template argument) onto tiles. A CTA stages 256
-// records at a time into shared memory, one per thread, then every thread
-// tests its own pixel against all staged triangles (shared-memory broadcast
-// reads, no bank conflicts) and keeps its own z-min in a register. A
-// per-triangle bbox test against the tile is uniform across the CTA, so it
-// skips triangles without divergence. The TPU's 4096-triangle slab split
-// and its per-camera SMEM budget (an SMEM limit) are gone, since z-min does
-// not depend on order.
+// Design: one coverage walk (walk_records) for both kernels, which culls
+// each record once per tile and once per warp, never per pixel:
+// 1. Tile cull. 256 listed records a round, one a thread: the thread reads
+//    the record's 4 box fields only and tests them against the tile's
+//    sample extents. Survivors are compacted in list order (warp ballots)
+//    and only they read their 12 other fields, into shared memory as 4
+//    float4s a record (box; a0 b0 c0 a1; b1 c1 a2 b2; c2 z0 z1 z2),
+//    structure of arrays, so that a lane's own record and a broadcast
+//    record are each one conflict-free LDS.128. The next round's box is
+//    loaded before the walk, its latency behind the walk.
+// 2. Warp cull. Each warp owns an 8x4 footprint of the tile. A lane tests
+//    one survivor's box against the footprint's sample extents, and the
+//    ballot is the warp's list of those that reach it, walked in list
+//    order: the record loop is warp-uniform, and only those records reach
+//    the coverage test (33 M per-pixel tests instead of 115 M at 16k).
+// Now the walk is instruction- and latency-bound: per round two barriers
+// and two dependent L2 round trips (the fields, the next list entry), then
+// the warps' passes. Measured on the card (PERF.md §6), and left out:
+// an exact corner test of each edge per footprint cut the coverage tests
+// by a further 28% (16k) but cost more in its own pass than it saved;
+// 16x2 footprints; per-record masks of 4x4 squares walked by half-warps;
+// the coverage loop unrolled by two; the fields and the next list entry
+// loaded across the first barrier. Registers are capped at 40 (6 CTAs an
+// SM; shared memory, 16.4 KB a CTA and 17.4 with K5's chunk list, would
+// allow 8): at 32 the walk spills and was slower. The TPU's 4096-triangle
+// slab split and its per-camera SMEM budget are gone: z-min does not
+// depend on order, and the walk keeps list order anyway.
 //
-// K1's tile list holds chunk ids: every listed chunk is staged. K5's holds
-// superchunk ids (`supers` chunks each), so the list table is `supers`
-// times smaller. Per round its 256 threads each test one chunk of the
-// listed superchunks (32 superchunks at supers = 8) against the tile, the
-// chunks that hit are compacted in list order (warp ballots), and only
-// those are staged. What the chunk skip saves over K1: the staging and the
-// per-triangle bbox tests of chunks inside a listed superchunk's box but
-// outside the tile; the coverage tests themselves are the same, because K1
-// already skips by the triangle's box.
+// K1's tile list holds chunk ids: every listed chunk's records are
+// candidates. K5's holds superchunk ids (`supers` chunks each), so the list
+// table is `supers` times smaller: per round its 256 threads each test one
+// chunk of the listed superchunks against the tile, the chunks that hit
+// are compacted in list order, and their records are the candidates.
 //
 // Arithmetic: l = a*px + b*py + c and z = l0*z0 + l1*z1 + l2*z2 use
 // explicitly rounded multiplies and adds in the plain version's order, so
@@ -43,55 +59,181 @@
 
 namespace {
 
-constexpr int kTile = 16;                 // tile edge in pixels (blockDim)
-constexpr int kThreads = kTile * kTile;   // records staged per round
+constexpr int kTile = 16;                 // tile edge in pixels
+constexpr int kThreads = kTile * kTile;   // one pixel a thread
 constexpr int kWarps = kThreads / 32;
-constexpr int kFields = 16;  // a0 b0 c0 a1 b1 c1 a2 b2 c2 z0 z1 z2
-                             // xmin xmax ymin ymax
+constexpr int kFootW = 8, kFootH = 4;     // a warp's footprint in pixels
+constexpr int kFootCols = kTile / kFootW;
+static_assert(kFootW * kFootH == 32 && kFootCols * (kTile / kFootH) == kWarps,
+              "the footprints tile the tile, one a warp");
+constexpr int kBox = 12;  // packed field rows: a0 b0 c0 a1 b1 c1 a2 b2 c2
+                          // z0 z1 z2, then the box xmin xmax ymin ymax
+constexpr int kFields = 16;
 
 __device__ __forceinline__ float affine(float a, float b, float c, float x,
                                         float y) {
   return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)), c);
 }
 
-// One thread copies record `tid % kChunk` of chunk `chunk_id` into column
-// `tid` of the stage.
-template <int kChunk>
-__device__ __forceinline__ void stage_record(float (*rec)[kThreads],
-                                             const float* __restrict__ recs,
-                                             int n_rec, int chunk_id,
-                                             int tid) {
-  const long long t = (long long)chunk_id * kChunk + tid % kChunk;
-#pragma unroll
-  for (int f = 0; f < kFields; ++f) rec[f][tid] = recs[f * (long long)n_rec + t];
+// Sample extents of a box of pixels: x_lo..x_hi, y_lo..y_hi in NDC.
+struct Extent {
+  float x_lo, x_hi, y_lo, y_hi;
+};
+
+__device__ __forceinline__ bool overlaps(const float4& box, const Extent& e) {
+  return box.x <= e.x_hi && box.y >= e.x_lo && box.z <= e.y_hi &&
+         box.w >= e.y_lo;
 }
 
-// z-min of this thread's pixel over the first n_tri staged records.
-__device__ __forceinline__ float zmin_staged(const float (*rec)[kThreads],
-                                             int n_tri, float pxv, float pyv,
-                                             float x_lo, float x_hi,
-                                             float y_lo, float y_hi,
-                                             float zbuf) {
-  for (int i = 0; i < n_tri; ++i) {
-    if (rec[12][i] <= x_hi && rec[13][i] >= x_lo && rec[14][i] <= y_hi &&
-        rec[15][i] >= y_lo) {
-      const float l0 = affine(rec[0][i], rec[1][i], rec[2][i], pxv, pyv);
-      const float l1 = affine(rec[3][i], rec[4][i], rec[5][i], pxv, pyv);
-      const float l2 = affine(rec[6][i], rec[7][i], rec[8][i], pxv, pyv);
-      const float zs = __fadd_rn(
-          __fadd_rn(__fmul_rn(l0, rec[9][i]), __fmul_rn(l1, rec[10][i])),
-          __fmul_rn(l2, rec[11][i]));
-      if (l0 >= 0.0f && l1 >= 0.0f && l2 >= 0.0f && zs >= -1.0f &&
-          zs <= 1.0f) {
-        zbuf = fminf(zbuf, zs);
-      }
+// Staged records of one round (tile survivors, list order).
+struct Stage {
+  float4 box[kThreads];  // xmin xmax ymin ymax
+  float4 e0[kThreads];   // a0 b0 c0 a1
+  float4 e1[kThreads];   // b1 c1 a2 b2
+  float4 e2[kThreads];   // c2 z0 z1 z2
+  int warp_hits[kWarps];
+};
+
+// The depth of staged record (e0, e1, e2) at sample (x, y) where it covers
+// it, else +inf (which leaves a z-min as it is).
+__device__ __forceinline__ float cover_z(const float4& e0, const float4& e1,
+                                         const float4& e2, float x,
+                                         float y) {
+  const float l0 = affine(e0.x, e0.y, e0.z, x, y);
+  const float l1 = affine(e0.w, e1.x, e1.y, x, y);
+  const float l2 = affine(e1.z, e1.w, e2.x, x, y);
+  const float zs = __fadd_rn(
+      __fadd_rn(__fmul_rn(l0, e2.y), __fmul_rn(l1, e2.z)),
+      __fmul_rn(l2, e2.w));
+  return l0 >= 0.0f && l1 >= 0.0f && l2 >= 0.0f && zs >= -1.0f && zs <= 1.0f
+             ? zs
+             : INFINITY;
+}
+
+// The warp's pass over the first n staged records: cull per footprint,
+// then the coverage test of each survivor at this lane's pixel.
+__device__ __forceinline__ float walk_stage(const Stage& s, int n,
+                                            const Extent& foot, float pxv,
+                                            float pyv, int lane,
+                                            float zbuf) {
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + lane;
+    unsigned todo =
+        __ballot_sync(0xffffffffu, j < n && overlaps(s.box[j], foot));
+    while (todo) {  // warp-uniform: the survivors in list order
+      const int k = j0 + __ffs(todo) - 1;
+      todo &= todo - 1u;
+      zbuf = fminf(zbuf, cover_z(s.e0[k], s.e1[k], s.e2[k], pxv, pyv));
     }
   }
   return zbuf;
 }
 
+// What every thread of a CTA knows of its tile and its pixel.
+struct Pixel {
+  int tid, lane, warp, row, col;
+  bool live;      // the warp's footprint has a pixel in the image
+  float px, py;   // this pixel's sample position (clamped into the image)
+  Extent tile;    // the tile's sample extents (tile_extents)
+  Extent foot;    // the warp's footprint's sample extents
+};
+
+__device__ __forceinline__ Pixel pixel_of(const float* __restrict__ px,
+                                          const float* __restrict__ py,
+                                          const float* __restrict__ tx0,
+                                          const float* __restrict__ tx1,
+                                          const float* __restrict__ ty0,
+                                          const float* __restrict__ ty1,
+                                          int height, int width) {
+  Pixel p;
+  p.tid = threadIdx.x;
+  p.lane = p.tid & 31;
+  p.warp = p.tid >> 5;
+  const int c0 = blockIdx.x * kTile + (p.warp % kFootCols) * kFootW;
+  const int r0 = blockIdx.y * kTile + (p.warp / kFootCols) * kFootH;
+  p.col = c0 + p.lane % kFootW;
+  p.row = r0 + p.lane / kFootW;
+  p.live = c0 < width && r0 < height;
+  p.px = px[min(p.col, width - 1)];
+  p.py = py[min(p.row, height - 1)];
+  p.tile = {tx0[blockIdx.x], tx1[blockIdx.x], ty0[blockIdx.y],
+            ty1[blockIdx.y]};
+  // px rises with the column and py falls with the row: the footprint's
+  // extents are its first and last lanes' clamped samples
+  p.foot = {__shfl_sync(0xffffffffu, p.px, 0),
+            __shfl_sync(0xffffffffu, p.px, kFootW - 1),
+            __shfl_sync(0xffffffffu, p.py, 31),
+            __shfl_sync(0xffffffffu, p.py, 0)};
+  return p;
+}
+
+__device__ __forceinline__ float4 load_box(const float* __restrict__ recs,
+                                           int n_rec, long long t) {
+  const float* r = recs + kBox * (long long)n_rec + t;
+  return make_float4(r[0], r[n_rec], r[2 * (long long)n_rec],
+                     r[3 * (long long)n_rec]);
+}
+
+// The coverage walk over n candidate records, in list order: candidate i
+// is record i % kChunk of chunk chunk_at(i / kChunk). Returns this pixel's
+// z-min folded into zbuf. Every thread of the CTA calls it with the same n.
+template <int kChunk, class ChunkAt>
+__device__ __forceinline__ float walk_records(Stage& s, int n,
+                                              ChunkAt chunk_at,
+                                              const float* __restrict__ recs,
+                                              int n_rec, const Pixel& p,
+                                              float zbuf) {
+  long long t = 0;
+  float4 box = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (p.tid < n) {
+    t = (long long)chunk_at(p.tid / kChunk) * kChunk + p.tid % kChunk;
+    box = load_box(recs, n_rec, t);
+  }
+  for (int base = 0; base < n; base += kThreads) {
+    const bool hit = base + p.tid < n && overlaps(box, p.tile);
+    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+    if (p.lane == 0) s.warp_hits[p.warp] = __popc(ballot);
+    __syncthreads();  // the counts are in; the last round's stage is read
+    int n_hit = 0, slot = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      slot += w < p.warp ? s.warp_hits[w] : 0;
+      n_hit += s.warp_hits[w];
+    }
+    if (hit) {
+      slot += __popc(ballot & ((1u << p.lane) - 1u));
+      const float* r = recs + t;
+      float f[kBox];
+#pragma unroll
+      for (int i = 0; i < kBox; ++i) f[i] = r[i * (long long)n_rec];
+      s.box[slot] = box;
+      s.e0[slot] = make_float4(f[0], f[1], f[2], f[3]);
+      s.e1[slot] = make_float4(f[4], f[5], f[6], f[7]);
+      s.e2[slot] = make_float4(f[8], f[9], f[10], f[11]);
+    }
+    const int next = base + kThreads + p.tid;
+    if (next < n) {  // the next round's candidate, in flight over the walk
+      t = (long long)chunk_at(next / kChunk) * kChunk + next % kChunk;
+      box = load_box(recs, n_rec, t);
+    }
+    __syncthreads();  // the stage is written
+    if (p.live) zbuf = walk_stage(s, n_hit, p.foot, p.px, p.py, p.lane, zbuf);
+  }
+  return zbuf;
+}
+
+__device__ __forceinline__ void store_depth(float* __restrict__ out,
+                                            const Pixel& p, int height,
+                                            int width, float zbuf) {
+  if (p.row < height && p.col < width) {
+    out[((long long)blockIdx.z * height + p.row) * width + p.col] =
+        isinf(zbuf) ? 1.0f : zbuf;
+  }
+}
+
+// At most 40 registers a thread: 6 CTAs an SM (see the note at the top).
 template <int kChunk>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 6)
 raster_tiles_kernel(const float* __restrict__ packed,
                     const int* __restrict__ lists,
                     const int* __restrict__ counts,
@@ -103,43 +245,20 @@ raster_tiles_kernel(const float* __restrict__ packed,
                     const float* __restrict__ ty1, float* __restrict__ out,
                     int n_rec, int n_chunks, int height, int width, int ntx,
                     int nty) {
-  constexpr int kStageChunks = kThreads / kChunk;
-  __shared__ float rec[kFields][kThreads];
-
-  const int cam = blockIdx.z;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const int row = blockIdx.y * kTile + threadIdx.y;
-  const int col = blockIdx.x * kTile + threadIdx.x;
-  const float pxv = px[min(col, width - 1)];
-  const float pyv = py[min(row, height - 1)];
-  const float x_lo = tx0[blockIdx.x], x_hi = tx1[blockIdx.x];
-  const float y_lo = ty0[blockIdx.y], y_hi = ty1[blockIdx.y];
-
-  const long long slot = (long long)cam * ntx * nty + blockIdx.y * ntx +
+  __shared__ Stage s;
+  const Pixel p = pixel_of(px, py, tx0, tx1, ty0, ty1, height, width);
+  const long long slot = ((long long)blockIdx.z * nty + blockIdx.y) * ntx +
                          blockIdx.x;
-  const int count = counts[slot];
   const int* list = lists + slot * n_chunks;
-  const float* recs = packed + (long long)cam * kFields * n_rec;
-
-  float zbuf = INFINITY;
-  for (int base = 0; base < count; base += kStageChunks) {
-    const int n_stage = min(kStageChunks, count - base);
-    __syncthreads();  // the previous stage is fully consumed
-    if (tid / kChunk < n_stage) {
-      stage_record<kChunk>(rec, recs, n_rec, list[base + tid / kChunk], tid);
-    }
-    __syncthreads();
-    zbuf = zmin_staged(rec, n_stage * kChunk, pxv, pyv, x_lo, x_hi, y_lo,
-                       y_hi, zbuf);
-  }
-  if (row < height && col < width) {
-    out[((long long)cam * height + row) * width + col] =
-        isinf(zbuf) ? 1.0f : zbuf;
-  }
+  const float* recs = packed + (long long)blockIdx.z * kFields * n_rec;
+  const float zbuf = walk_records<kChunk>(
+      s, counts[slot] * kChunk, [list](int i) { return list[i]; }, recs,
+      n_rec, p, INFINITY);
+  store_depth(out, p, height, width, zbuf);
 }
 
 template <int kChunk>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 6)
 raster_tiles2_kernel(const float* __restrict__ packed,
                      const float* __restrict__ cbox,
                      const int* __restrict__ lists,
@@ -152,69 +271,48 @@ raster_tiles2_kernel(const float* __restrict__ packed,
                      const float* __restrict__ ty1, float* __restrict__ out,
                      int n_rec, int nsup, int supers, int height, int width,
                      int ntx, int nty) {
-  constexpr int kStageChunks = kThreads / kChunk;
-  __shared__ float rec[kFields][kThreads];
-  __shared__ int hits[kThreads];      // chunk ids that hit, in list order
-  __shared__ int warp_hits[kWarps];
-
-  const int cam = blockIdx.z;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int row = blockIdx.y * kTile + threadIdx.y;
-  const int col = blockIdx.x * kTile + threadIdx.x;
-  const float pxv = px[min(col, width - 1)];
-  const float pyv = py[min(row, height - 1)];
-  const float x_lo = tx0[blockIdx.x], x_hi = tx1[blockIdx.x];
-  const float y_lo = ty0[blockIdx.y], y_hi = ty1[blockIdx.y];
-
-  const long long slot = (long long)cam * ntx * nty + blockIdx.y * ntx +
+  __shared__ Stage s;
+  __shared__ int hits[kThreads];  // chunk ids that hit, in list order
+  const Pixel p = pixel_of(px, py, tx0, tx1, ty0, ty1, height, width);
+  const long long slot = ((long long)blockIdx.z * nty + blockIdx.y) * ntx +
                          blockIdx.x;
   const int count = counts[slot];
   const int* list = lists + slot * nsup;
-  const float* recs = packed + (long long)cam * kFields * n_rec;
+  const float* recs = packed + (long long)blockIdx.z * kFields * n_rec;
   const int nch = nsup * supers;
   // chunk bbox unions: rows cxmin, cxmax, cymin, cymax of this camera
-  const float* cb = cbox + (long long)cam * 4 * nch;
+  const float* cb = cbox + (long long)blockIdx.z * 4 * nch;
 
   float zbuf = INFINITY;
   // candidates: the chunks of the listed superchunks, in list order
   const int n_cand = count * supers;
   for (int cbase = 0; cbase < n_cand; cbase += kThreads) {
-    const int cand = cbase + tid;
+    const int cand = cbase + p.tid;
     int c = 0;
     bool hit = false;
     if (cand < n_cand) {
       c = list[cand / supers] * supers + cand % supers;
-      hit = cb[c] <= x_hi && cb[nch + c] >= x_lo && cb[2 * nch + c] <= y_hi &&
-            cb[3 * nch + c] >= y_lo;
+      hit = overlaps(make_float4(cb[c], cb[nch + c], cb[2 * nch + c],
+                                 cb[3 * nch + c]),
+                     p.tile);
     }
+    // the last round read hits[] and the counts before its last barrier
     const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    __syncthreads();  // the previous round's hits and records are consumed
-    if (lane == 0) warp_hits[warp] = __popc(ballot);
+    if (p.lane == 0) s.warp_hits[p.warp] = __popc(ballot);
     __syncthreads();
     int n_hit = 0, offset = 0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      offset += w < warp ? warp_hits[w] : 0;
-      n_hit += warp_hits[w];
+      offset += w < p.warp ? s.warp_hits[w] : 0;
+      n_hit += s.warp_hits[w];
     }
-    if (hit) hits[offset + __popc(ballot & ((1u << lane) - 1u))] = c;
+    if (hit) hits[offset + __popc(ballot & ((1u << p.lane) - 1u))] = c;
     __syncthreads();
-    for (int h0 = 0; h0 < n_hit; h0 += kStageChunks) {
-      const int n_stage = min(kStageChunks, n_hit - h0);
-      if (h0 > 0) __syncthreads();  // the previous stage is fully consumed
-      if (tid / kChunk < n_stage) {
-        stage_record<kChunk>(rec, recs, n_rec, hits[h0 + tid / kChunk], tid);
-      }
-      __syncthreads();
-      zbuf = zmin_staged(rec, n_stage * kChunk, pxv, pyv, x_lo, x_hi, y_lo,
-                         y_hi, zbuf);
-    }
+    zbuf = walk_records<kChunk>(
+        s, n_hit * kChunk, [](int i) { return hits[i]; }, recs, n_rec,
+        p, zbuf);
   }
-  if (row < height && col < width) {
-    out[((long long)cam * height + row) * width + col] =
-        isinf(zbuf) ? 1.0f : zbuf;
-  }
+  store_depth(out, p, height, width, zbuf);
 }
 
 }  // namespace
@@ -222,10 +320,10 @@ raster_tiles2_kernel(const float* __restrict__ packed,
 // The chunk sizes the kernels take: one template instance each.
 #define MR_CHUNK_SWITCH(KERNEL, ...)                                   \
   switch (chunk) {                                                     \
-    case 8: KERNEL<8><<<grid, block, 0, s>>>(__VA_ARGS__); break;      \
-    case 16: KERNEL<16><<<grid, block, 0, s>>>(__VA_ARGS__); break;    \
-    case 32: KERNEL<32><<<grid, block, 0, s>>>(__VA_ARGS__); break;    \
-    case 64: KERNEL<64><<<grid, block, 0, s>>>(__VA_ARGS__); break;    \
+    case 8: KERNEL<8><<<grid, kThreads, 0, s>>>(__VA_ARGS__); break;   \
+    case 16: KERNEL<16><<<grid, kThreads, 0, s>>>(__VA_ARGS__); break; \
+    case 32: KERNEL<32><<<grid, kThreads, 0, s>>>(__VA_ARGS__); break; \
+    case 64: KERNEL<64><<<grid, kThreads, 0, s>>>(__VA_ARGS__); break; \
     default: return (int)cudaErrorInvalidValue;                        \
   }
 
@@ -245,7 +343,6 @@ MR_EXPORT int mr_raster_tiles(const float* packed, const int* lists,
   const int ntx = (width + kTile - 1) / kTile;
   const int nty = (height + kTile - 1) / kTile;
   dim3 grid(ntx, nty, n_cams);
-  dim3 block(kTile, kTile);
   cudaStream_t s = (cudaStream_t)stream;
   MR_CHUNK_SWITCH(raster_tiles_kernel, packed, lists, counts, px, py, tx0,
                   tx1, ty0, ty1, out, n_rec, n_chunks, height, width, ntx,
@@ -272,7 +369,6 @@ MR_EXPORT int mr_raster_tiles2(const float* packed, const float* cbox,
   const int ntx = (width + kTile - 1) / kTile;
   const int nty = (height + kTile - 1) / kTile;
   dim3 grid(ntx, nty, n_cams);
-  dim3 block(kTile, kTile);
   cudaStream_t s = (cudaStream_t)stream;
   MR_CHUNK_SWITCH(raster_tiles2_kernel, packed, cbox, lists, counts, px, py,
                   tx0, tx1, ty0, ty1, out, n_rec, nsup, supers, height,

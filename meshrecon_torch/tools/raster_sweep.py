@@ -17,9 +17,11 @@ card the setup and bin kernels, SETUP and BIN; on the CPU their plain
 versions, the torch ops ``pack_records`` and ``bin_chunks`` /
 ``bin_superchunks``), the kernel's ms on those bins (``raster_binned``),
 the peak device memory of one wrapper
-call above what was allocated before it, and the entries of the tile-list
-table. Every render must equal the one-level render of the same cameras at
-the first chunk size.
+call above what was allocated before it, the entries of the tile-list
+table, and the coverage walk's counts on those bins (:func:`walk_counts`:
+candidate records, tile and warp hits, the longest tile walk). Every render
+must equal the one-level render of the same cameras at the first chunk
+size.
 
 Times are CUDA-event means over ``--reps`` calls after one warm-up. The tool
 runs on the card unless ``--device cpu`` is passed (and raises without
@@ -52,6 +54,95 @@ def make_soup(t: int) -> np.ndarray:
     e2 = rng.normal(scale=0.05, size=(t, 3)).astype(np.float32)
     s = np.stack([p, p + e1, p + e2], axis=1) + ctr
     return s[binned.morton_order(s)]
+
+
+# A warp's footprint in the 16x16 tile (csrc/raster.cu: kFootW, kFootH):
+# warp w covers columns (w % 2) * 8 .. + 7 and rows (w // 2) * 4 .. + 3.
+FOOT_W, FOOT_H = 8, 4
+FOOT_COLS = binned.TILE // FOOT_W
+N_FOOT = FOOT_COLS * (binned.TILE // FOOT_H)
+
+
+def footprint_extents(tile_x, tile_y, grid):
+    """Sample extents (x_lo, x_hi, y_lo, y_hi), each (..., N_FOOT), of the
+    footprints of the tiles at column ``tile_x`` and row ``tile_y`` (index
+    tensors), from the render's ``grid`` (px, py): their first and last
+    pixels' samples, clamped into the image as the kernels clamp them; and
+    whether each footprint has a pixel in the image."""
+    px, py = grid
+    w = torch.arange(N_FOOT, device=px.device)
+    c0 = tile_x[..., None] * binned.TILE + (w % FOOT_COLS) * FOOT_W
+    r0 = tile_y[..., None] * binned.TILE + (w // FOOT_COLS) * FOOT_H
+    width, height = len(px), len(py)
+    return ((px[c0.clamp(max=width - 1)],
+             px[(c0 + FOOT_W - 1).clamp(max=width - 1)],
+             py[(r0 + FOOT_H - 1).clamp(max=height - 1)],
+             py[r0.clamp(max=height - 1)]),
+            (c0 < width) & (r0 < height))
+
+
+def walk_counts(bins: dict) -> dict:
+    """The coverage walk of K1 and K5 (csrc/raster.cu) on ``bins``
+    (:func:`binned.bin_soup`), counted with torch ops on their device:
+
+    - ``records``: the candidates, each box-tested against its tile by one
+      thread (K1: the listed chunks' records; K5: the records of the chunks
+      of the listed superchunks whose own box reaches the tile);
+    - ``tile_hits``: the candidates whose box reaches the tile, staged in
+      full;
+    - ``warp_hits``: (tile hit, warp) pairs whose box reaches the warp's
+      footprint (footprints with a pixel in the image), each a coverage
+      test at the warp's 32 pixels, which makes ``coverage_tests``;
+    - ``first_design_tests``: 256 x ``tile_hits``, the coverage tests of
+      the first design, which walked every tile hit at every pixel;
+    - ``longest_walk``: the most candidates of a tile; ``longest_warp``:
+      the most warp hits of a warp.
+    """
+    packed, lists, counts = bins["packed"], bins["lists"], bins["counts"]
+    chunk, supers = bins["chunk"], bins["supers"]
+    tx0, tx1, ty0, ty1 = bins["tiles"]
+    dev = packed.device
+    ntx, ntiles = len(tx0), lists.shape[1]
+    # the listed ids in list order, with their (camera, tile) slot
+    per_slot = counts.reshape(-1).long()
+    slot = torch.repeat_interleave(torch.arange(len(per_slot), device=dev),
+                                   per_slot)
+    first = torch.cumsum(per_slot, 0) - per_slot
+    pos = torch.arange(len(slot), device=dev) - first[slot]
+    ids = lists.reshape(len(per_slot), -1)[slot, pos].long()
+
+    def tile_hit(slot, xmin, xmax, ymin, ymax):
+        t = slot % ntiles
+        tx, ty = t % ntx, t // ntx
+        return ((xmin <= tx1[tx]) & (xmax >= tx0[tx]) & (ymin <= ty1[ty])
+                & (ymax >= ty0[ty]))
+
+    if bins["cbox"] is not None:  # K5: the chunks whose box hits the tile
+        ids = (ids[:, None] * supers
+               + torch.arange(supers, device=dev)).reshape(-1)
+        slot = slot.repeat_interleave(supers)
+        hit = tile_hit(slot, *bins["cbox"][slot // ntiles, :, ids].unbind(1))
+        ids, slot = ids[hit], slot[hit]
+    rec = (ids[:, None] * chunk + torch.arange(chunk, device=dev)).reshape(-1)
+    slot = slot.repeat_interleave(chunk)
+    records = len(rec)
+    longest_walk = int(torch.bincount(slot).max().item()) if records else 0
+    box = packed[slot // ntiles, 12:16, rec]
+    hit = tile_hit(slot, *box.unbind(1))
+    slot, box = slot[hit], box[hit][..., None]  # (tile hits, 4, 1)
+    t = slot % ntiles
+    (x_lo, x_hi, y_lo, y_hi), inside = footprint_extents(t % ntx, t // ntx,
+                                                         bins["grid"])
+    reach = (inside & (box[:, 0] <= x_hi) & (box[:, 1] >= x_lo)
+             & (box[:, 2] <= y_hi) & (box[:, 3] >= y_lo))
+    warp_hits = int(reach.sum().item())
+    per_warp = torch.bincount(
+        (slot[:, None] * N_FOOT + torch.arange(N_FOOT, device=dev))[reach])
+    return dict(records=records, tile_hits=len(slot), warp_hits=warp_hits,
+                coverage_tests=warp_hits * FOOT_W * FOOT_H,
+                first_design_tests=len(slot) * binned.TILE * binned.TILE,
+                longest_walk=longest_walk,
+                longest_warp=int(per_warp.max().item()) if warp_hits else 0)
 
 
 def _peak_mb(fn, device):
@@ -124,7 +215,8 @@ def main(argv=None) -> list[dict]:
 
     print(f"{'case':<12} {'variant':<14} {'chunk':>5} {'wrapper ms':>11} "
           f"{'binning ms':>11} {'kernel ms':>10} {'peak MB':>9} "
-          f"{'list entries':>13}", flush=True)
+          f"{'list entries':>13} {'records':>9} {'tile hits':>9} "
+          f"{'warp hits':>9} {'longest':>7}", flush=True)
     rows = []
     for name, soup_np, valid_np in cases:
         soup = torch.from_numpy(np.ascontiguousarray(soup_np)).to(device)
@@ -155,14 +247,16 @@ def main(argv=None) -> list[dict]:
                         lambda: binned.raster_binned(kernel, bins),
                         args.reps, device),
                     peak_mb=_peak_mb(run, device),
-                    list_entries=bins["lists"].numel())
+                    list_entries=bins["lists"].numel(), **walk_counts(bins))
                 del bins
                 rows.append(row)
                 print(f"{name:<12} {label:<14} {chunk:>5} "
                       f"{row['wrapper_ms']:>11.4f} {row['binning_ms']:>11.4f} "
                       f"{_fmt(row['kernel_ms'], 10, 4)} "
                       f"{_fmt(row['peak_mb'], 9, 1)} "
-                      f"{row['list_entries']:>13}", flush=True)
+                      f"{row['list_entries']:>13} {row['records']:>9} "
+                      f"{row['tile_hits']:>9} {row['warp_hits']:>9} "
+                      f"{row['longest_walk']:>7}", flush=True)
         if name == "bench578":
             row = dict(case=name, tris=int(valid_np.sum()), variant="plain",
                        cameras=1, chunk=None,

@@ -161,6 +161,61 @@ def test_raster_tiles_chunks_bitwise(dev, chunk):
     assert (want < 1.0).any() and torch.equal(out, want)
 
 
+def _cull_soup(kind):
+    """203 triangles (406 records: never a whole number of chunks) that
+    make the walk's tile and footprint culls bite, with the camera
+    that sees them: large triangles across many tiles and their corners;
+    slivers (long, nearly degenerate); the near-plane straddle soup."""
+    rng = np.random.default_rng({"large": 1, "slivers": 2,
+                                 "near_straddle": 3}[kind])
+    t = 203
+    cam = problems.make_camera()
+    if kind == "large":
+        centers = rng.uniform([-1.6, -1.2, -6.5], [1.6, 1.2, -4.0], (t, 1, 3))
+        soup = centers + rng.normal(scale=0.7, size=(t, 3, 3))
+    elif kind == "slivers":
+        a = rng.uniform([-1.6, -1.2, -6.5], [1.6, 1.2, -4.0], (t, 3))
+        d = rng.normal(size=(t, 3)) * rng.uniform(0.3, 2.0, (t, 1))
+        c = (a + d * rng.uniform(0.2, 0.8, (t, 1))
+             + rng.normal(scale=1e-3, size=(t, 3)))
+        soup = np.stack([a, a + d, c], 1)
+    else:
+        soup = rng.normal(size=(t, 3, 3))
+        cam = problems.make_camera(near=0.01, far=10.0, eye=(0, 0, 0.2))
+    return soup.astype(np.float32), cam
+
+
+@pytest.mark.parametrize("kind", ["large", "slivers", "near_straddle"])
+@pytest.mark.parametrize("ncam", [1, 16])
+def test_raster_walk_culls_bitwise(dev, kind, ncam):
+    """K1 and K5 (both wrappers) bitwise against ``render_depth`` on soups
+    where the walk's culls bite (the sweep tool's counts say so), at 1 and
+    16 cameras on a ragged 250x330 screen, chunks 8 and 64."""
+    from meshrecon_torch.tools import raster_sweep
+
+    soup_np, cam = _cull_soup(kind)
+    soup = torch.from_numpy(soup_np).to(dev)
+    valid = torch.ones(len(soup), dtype=torch.bool, device=dev)
+    cams = torch.cat([torch.from_numpy(cam)[None].to(dev),
+                      _cams(4, 3, dev)[1:]])[:ncam].contiguous()
+    h, w = 250, 330
+    ref = rasterizer.render_depth(cams, soup, valid, h, w)
+    assert (ref < 1.0).any()
+    for chunk in (8, 64):
+        bins = binned.bin_soup(cams, soup, valid, h, w, chunk)
+        n = raster_sweep.walk_counts(bins)
+        assert n["tile_hits"] < n["records"]
+        assert n["warp_hits"] < 8 * n["tile_hits"]
+        k1, k5a, k5b = _counts()
+        assert torch.equal(binned.render_depth_binned(
+            cams, soup, valid, h, w, chunk), ref)
+        assert torch.equal(binned.render_depth_binned(
+            cams, soup, valid, h, w, chunk, two_level=True), ref)
+        assert torch.equal(binned.render_depth_binned_batched(
+            cams, soup, valid, h, w, chunk), ref)
+        assert _counts() == (k1 + 1, k5a + 1, k5b + 1)
+
+
 def test_raster_wrappers_refuse(dev):
     soup, valid = (torch.from_numpy(a).to(dev) for a in
                    state.pack_soup(problems.sphere_soup(8, 8)))
