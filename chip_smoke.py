@@ -3,6 +3,13 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
     [--parent-raster PARENT/meshrecon_torch/csrc/raster.cu]
+    [--parent-warp PARENT/meshrecon_torch/csrc/warp.cu]
+    [--parent-roofline PARENT/meshrecon_torch/csrc/roofline.cu]
+
+Each ``--parent-*`` source (another tree's, e.g. the parent commit's from
+an unpacked ``git archive`` under ``build/``) is built apart with the same
+flags and its kernels (K1 and K5; K3b; R2) are timed against this tree's
+in the same alternating rounds, and must equal them bit for bit.
 
 1. Prints the device (``torch.cuda.get_device_name`` and nvidia-smi's name
    and power limit); exits non-zero without a CUDA device.
@@ -54,7 +61,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    Then the roofline phase: R1-R4 (the roofline probes) against their
    plain versions at the roofline tool's shapes (R1 4096x4096, R2 one
    256x512 block of 2,048 FMAs, R3 8x128 in one CTA, R4 512x128 in 64 and
-   in 1 CTAs; R1, R3, R4 bitwise, R2 1e-6 relative), R1, R3 and R4 timed
+   in 1 CTAs; R1, R3, R4 bitwise, R2 1e-6 relative), R2 eager and from a
+   CUDA graph in 7 alternating rounds (against the parent's R2), with its
+   geometry and nvidia-smi's SM clock sampled while its graph replays, R1,
+   R3 and R4 timed
    against ``torch.mul`` / ``torch.add``, their library yardsticks, eager
    and from CUDA graphs in 7 alternating rounds (median and min-max
    spread), and R3's launch path split the same way (the C entry alone
@@ -598,18 +608,20 @@ def binning_phase(torch, dev, res, slice_args):
 RASTER_GRAPH_CALLS = 20  # raster calls in a CUDA graph of the raster phase
 
 
-def build_parent_raster(src):
-    """Build another tree's ``csrc/raster.cu`` (the parent commit's) alone,
-    with the port's nvcc flags, into build/chip_smoke/ and load it through
-    ctypes (its entries have this tree's signatures); prints the
-    compiler's register report."""
+def build_parent(src):
+    """Build another tree's kernel source (the parent commit's
+    ``csrc/raster.cu``, ``warp.cu`` or ``roofline.cu``) alone, with the
+    port's nvcc flags, into build/chip_smoke/ and load it through ctypes
+    (its entries have this tree's signatures); prints the compiler's
+    register report."""
     from meshrecon_torch.kernels import _build
 
-    out = Path("build/chip_smoke/parent_raster.so").resolve()
+    src = Path(src).resolve()
+    out = Path(f"build/chip_smoke/parent_{src.stem}.so").resolve()
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                           "-o", str(out), str(Path(src).resolve())],
+                           "-o", str(out), str(src)],
                           capture_output=True, text=True, timeout=600)
     if done.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{done.stderr}")
@@ -620,11 +632,28 @@ def build_parent_raster(src):
     return ctypes.CDLL(str(out))
 
 
+def _c_entry(lib, name):
+    """``lib``'s launch entry ``name`` through ctypes, its argument types
+    from ``_SIGNATURES``: what the kernel alone costs, with no wrapper and
+    no count. A non-zero CUDA status raises."""
+    from meshrecon_torch.kernels._build import _SIGNATURES
+
+    fn = getattr(lib, name)
+    fn.argtypes = [{"P": ctypes.c_void_p, "I": ctypes.c_int,
+                    "F": ctypes.c_float}[kind] for kind in _SIGNATURES[name]]
+    fn.restype = ctypes.c_int
+
+    def call(*args):
+        code = fn(*args)
+        if code:
+            raise RuntimeError(f"{name}: CUDA error {code}")
+    return call
+
+
 def _raster_entry(torch, lib, bins):
     """A call of ``lib``'s K1 (one-level ``bins``) or K5 entry on ``bins``
-    through ctypes, into an output made once: what the kernel alone does,
-    with no wrapper and no count. Returns (call, out)."""
-    from meshrecon_torch.kernels._build import _SIGNATURES
+    through ctypes (:func:`_c_entry`), into an output made once. Returns
+    (call, out)."""
     from meshrecon_torch.raster import binned
 
     packed, lists, counts = bins["packed"], bins["lists"], bins["counts"]
@@ -633,10 +662,7 @@ def _raster_entry(torch, lib, bins):
     out = torch.empty((n, h, w), dtype=torch.float32, device=packed.device)
     ptrs = [t.data_ptr() for t in (*bins["grid"], *bins["tiles"], out)]
     name = "mr_raster_tiles" if bins["cbox"] is None else "mr_raster_tiles2"
-    fn = getattr(lib, name)
-    fn.argtypes = [{"P": ctypes.c_void_p, "I": ctypes.c_int}[kind]
-                   for kind in _SIGNATURES[name]]
-    fn.restype = ctypes.c_int
+    fn = _c_entry(lib, name)
     if bins["cbox"] is None:
         args = [packed.data_ptr(), lists.data_ptr(), counts.data_ptr(), *ptrs,
                 n, n_rec, lists.shape[-1], h, w, binned.TILE, bins["chunk"]]
@@ -646,9 +672,7 @@ def _raster_entry(torch, lib, bins):
                 binned.TILE, bins["chunk"], bins["supers"]]
 
     def call():
-        code = fn(*args, torch.cuda.current_stream().cuda_stream)
-        if code:
-            raise RuntimeError(f"{name}: CUDA error {code}")
+        fn(*args, torch.cuda.current_stream().cuda_stream)
 
     return call, out
 
@@ -799,10 +823,41 @@ def raster_phase(torch, dev, res, slice_args, parent=None):
     return launches
 
 
-def roofline_phase(torch, dev, res):
+def _r2_clocks(torch, call):
+    """nvidia-smi's SM clock and its maximum, sampled every 100 ms while a
+    CUDA graph of ``GRAPH_CALLS`` calls of ``call`` (R2) replays for about
+    a second; the sampler is stopped before this returns."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            call()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        t_end = time.perf_counter() + 1.2
+        while time.perf_counter() < t_end:
+            for _ in range(20):
+                graph.replay()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    samples = [line.strip() for line in out.splitlines() if line.strip()]
+    print("nvidia-smi --query-gpu=clocks.sm,clocks.max.sm while R2's graph "
+          f"replays (every 100 ms): {samples}")
+
+
+def roofline_phase(torch, dev, res, parent=None):
     """R1-R4 against their plain versions at the roofline tool's shapes:
     R1, R3 and R4 bitwise, R2 to 1e-6 relative (the plain version's float64
-    sum can round before its float32 rounding); then the roofline tool
+    sum can round before its float32 rounding). R2 eager (50 calls) and
+    from a CUDA graph of 100 calls in 7 alternating rounds, with its
+    geometry and the SM clock while it runs; given ``parent`` (the
+    parent's roofline.cu, built apart) against the parent's R2 through
+    ctypes in the same rounds, which must equal R2 bit for bit. Then the
+    roofline tool
     (``meshrecon_torch.tools.roofline``) in-process, its launch counts reset
     just before. Returns (the tool's numbers, its launches); R3's and R4's
     launches add the tool's CUDA-graph replays x the launches captured."""
@@ -839,12 +894,50 @@ def roofline_phase(torch, dev, res):
     print(f"{rl.R2.name}: max relative error {rel:.3e} (bound 1e-6)")
     if not rel <= 1e-6:
         raise AssertionError(f"{rl.R2.name}: relative error {rel}")
-    ms = _cuda_ms(torch, lambda: rl.fma_chain(b, out=o), 50)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shape = (ctypes.c_int * 3)()
+    if library().cdll.mr_roofline_fma_shape(b.numel(), sms, shape) != 0:
+        raise AssertionError("mr_roofline_fma_shape refused the tool's block")
+    if tuple(shape) != rl.fma_shape(b.numel(), sms):
+        raise AssertionError(f"R2's geometry {tuple(shape)} differs from "
+                             f"its mirror {rl.fma_shape(b.numel(), sms)}")
+    print(f"{rl.R2.name}: {shape[0]} CTAs of {shape[1]} threads, "
+          f"{shape[2]} chains a thread, on {sms} SMs")
+
+    def r2():
+        rl.fma_chain(b, out=o)
+    timers = {"R2 eager": lambda: _cuda_ms(torch, r2, 50),
+              "R2 graph": _graph_timer(torch, r2)}
+    if parent is not None:
+        parent_r2 = _c_entry(parent, "mr_roofline_fma")
+        p_out = torch.empty_like(b)
+        p_args = (b.data_ptr(), p_out.data_ptr(), b.numel(), rl.INNER)
+
+        def parent_call():
+            # the stream at call time: a graph captures on its own
+            parent_r2(*p_args, torch.cuda.current_stream().cuda_stream)
+        parent_call()
+        torch.cuda.synchronize()
+        if not torch.equal(p_out, out):
+            raise AssertionError("R2 differs from the parent's R2")
+        print(f"{rl.R2.name}: equal to the parent's R2 bit for bit")
+        timers["parent eager"] = lambda: _cuda_ms(torch, parent_call, 50)
+        timers["parent graph"] = _graph_timer(torch, parent_call)
+    t = _interleaved(
+        f"R2 fma_chain 256x512, {rl.INNER} FMAs"
+        + (" against the parent's R2" if parent is not None else "")
+        + f", eager (50 calls) and device (a CUDA graph of {GRAPH_CALLS} "
+        "calls)", timers)
+    flops = 2 * rl.INNER * b.numel()
+    print(f"{rl.R2.name}: " + "; ".join(
+        f"{name} {flops / (t[name] * 1e-3) / 1e12:.2f} TFLOP/s"
+        for name in t if name.endswith("graph")))
+    _r2_clocks(torch, r2)
     plain_ms = _cuda_ms(torch, lambda: rl.fma_chain_plain(b), 2)
     # bytes: one float in, one out; operations: 2 an FMA
     res.add(rl.R2, f"256x512, {rl.INNER} FMAs", (out - ref).abs().max().item(),
-            1e-6 * ref.abs().max().item(), ms, plain_ms,
-            work=(8 * b.numel(), 2 * rl.INNER * b.numel()))
+            1e-6 * ref.abs().max().item(), t["R2 eager"], plain_ms,
+            work=(8 * b.numel(), flops))
 
     for kernel, rows, nblocks in ((rl.R3, rl.TINY_ROWS, 1),
                                   (rl.R4, rl.GRID_ROWS, 64),
@@ -950,25 +1043,66 @@ def breakdown_phase(torch, dev, launch_us):
                                      for k, v in metrics.items()))
 
 
-def k3b_phase(torch, dev, res):
-    """K3b against flow_remap: the e2e re-warp's B*K=12 stack and the K=8
-    bucket, a smooth flow of a few px pushed 20 px off the left border on
-    its first 16 columns and off the bottom on its last 8 rows, so that
-    every tap there clamps."""
+def _rewarp_flows(torch, dev, args_np):
+    """The (images, u, v) that K3b meets in the rewarp update: the fused
+    update with ``variance="rewarp"`` on ``args_np`` (640x480, K=3, B=4),
+    its call of ``tile_warp_flow_batched`` recorded: the mixed side frames
+    and the flows ``variational_flow`` returns on the (main, mixed)
+    pairs."""
+    from meshrecon_torch import state
+    from meshrecon_torch.pipeline import fused
+
+    seen = []
+    warp = fused.tile_warp_flow_batched
+
+    def record(images, u, v, taps=2):
+        seen.append((images.clone(), u.clone(), v.clone()))
+        return warp(images, u, v, taps=taps)
+    fused.tile_warp_flow_batched = record
+    try:
+        fused.fused_main_update_batched(*state.from_numpy(args_np, dev), H,
+                                        W, variance="rewarp")
+    finally:
+        fused.tile_warp_flow_batched = warp
+    if len(seen) != 1:
+        raise AssertionError(f"the rewarp update warped {len(seen)} times")
+    return seen[0]
+
+
+def k3b_phase(torch, dev, res, args_np, parent=None):
+    """K3b against flow_remap (1e-4) on three fields: the e2e re-warp's
+    B*K=12 stack and the K=8 bucket, a smooth flow of a few px pushed 20 px
+    off the left border on its first 16 columns and off the bottom on its
+    last 8 rows, so that every tap there clamps; and the flows of the
+    rewarp update on the fused problem (4x3x480x640). For each: the warps
+    that read their taps unclamped, counted by the kernel and by the
+    Python mirror (equal); K3b eager (50 calls) and from a CUDA graph of
+    100 calls in 7 alternating rounds with ``grid_sample`` bicubic and,
+    given ``parent`` (the parent's warp.cu, built apart), with the
+    parent's K3b through ctypes, which must equal K3b bit for bit."""
     from meshrecon_torch.flow import tile_warp
     from meshrecon_torch.flow.remap import flow_remap
 
     gen = torch.Generator().manual_seed(SEED + 1)
+    cases = []
     for shape in ((B * K, H, W), (B, 8, H, W)):
-        px = int(np.prod(shape))
-        label = "x".join(map(str, shape))
         img = (127.5 + _smooth_field(torch, gen, shape, 120.0,
                                      dev)).contiguous()
         u = _smooth_field(torch, gen, shape, 3.0, dev)
         v = _smooth_field(torch, gen, shape, 3.0, dev)
         u[..., :16] -= 20.0
         v[..., -8:, :] += 20.0
-        u, v = u.contiguous(), v.contiguous()
+        cases.append(("x".join(map(str, shape)), img, u.contiguous(),
+                      v.contiguous()))
+    img, u, v = _rewarp_flows(torch, dev, args_np)
+    print(f"rewarp update flows: |u| max {u.abs().max().item():.3f} px, "
+          f"|v| max {v.abs().max().item():.3f} px")
+    cases.append((f"{B}x{K}x{H}x{W} rewarp flows", img, u, v))
+    parent_k3b = _c_entry(parent, "mr_warp_bicubic") if parent else None
+    for label, img, u, v in cases:
+        shape = tuple(img.shape)
+        px = int(np.prod(shape))
+        n = px // (H * W)
         out = tile_warp.tile_warp_flow_batched(img, u, v, taps=4)
         ref = flow_remap(torch.stack([u, v], -1), img)
         cols = torch.arange(W, dtype=torch.float32, device=dev)
@@ -976,24 +1110,62 @@ def k3b_phase(torch, dev, res):
         grid = _grid(torch, cols + u, rows + v)
         lib_in = img.reshape(-1, 1, H, W)
         lib = _library_sample(torch, lib_in, grid, "bicubic")
+        counted, unclamped = tile_warp.warp_bicubic_paths(img, u, v)
+        mirror = int(tile_warp.bicubic_warp_paths(u, v).sum().item())
+        warps = n * H * -(-W // (tile_warp.K3B_COLS * tile_warp.K3B_PIX))
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         lib_err = (lib.reshape(shape) - ref).abs().max().item()
-        ms = _cuda_ms(torch, lambda: tile_warp.tile_warp_flow_batched(
-            img, u, v, taps=4), 50)
+        print(f"warp_bicubic [{label}]: {unclamped} of {warps} warps "
+              f"({unclamped / warps:.4f}) read their taps unclamped, the "
+              f"rest clamp each tap (the mirror: {mirror}); "
+              f"grid_sample(bicubic, border) differs from flow_remap by "
+              f"{lib_err:.3e} at most (its normalized grid)")
+        if unclamped != mirror or not torch.equal(counted, out):
+            raise AssertionError(f"K3b [{label}]: the kernel's path split "
+                                 f"({unclamped}) or output differs from "
+                                 f"the mirror's ({mirror})")
+
+        def k3b():
+            return tile_warp.tile_warp_flow_batched(img, u, v, taps=4)
+
+        def grid_sample():
+            return _library_sample(torch, lib_in, grid, "bicubic")
+        timers = {"K3b eager": lambda: _cuda_ms(torch, k3b, 50),
+                  "K3b graph": _graph_timer(torch, k3b),
+                  "grid_sample eager": lambda: _cuda_ms(torch, grid_sample,
+                                                        50),
+                  "grid_sample graph": _graph_timer(torch, grid_sample)}
+        if parent_k3b is not None:
+            p_out = torch.empty_like(img)
+            p_args = (img.data_ptr(), u.data_ptr(), v.data_ptr(),
+                      p_out.data_ptr(), n, H, W)
+
+            def parent_call():
+                # the stream at call time: a graph captures on its own
+                parent_k3b(*p_args, torch.cuda.current_stream().cuda_stream)
+            parent_call()
+            torch.cuda.synchronize()
+            if not torch.equal(p_out, out):
+                raise AssertionError(f"K3b [{label}]: differs from the "
+                                     "parent's K3b")
+            print(f"warp_bicubic [{label}]: equal to the parent's K3b bit "
+                  "for bit")
+            timers["parent eager"] = lambda: _cuda_ms(torch, parent_call, 50)
+            timers["parent graph"] = _graph_timer(torch, parent_call)
+        t = _interleaved(
+            f"K3b [{label}] against grid_sample bicubic"
+            + (" and the parent's K3b" if parent_k3b else "")
+            + f", eager (50 calls) and device (a CUDA graph of "
+            f"{GRAPH_CALLS} calls)", timers)
         plain_ms = _cuda_ms(torch, lambda: flow_remap(
             torch.stack([u, v], -1), img), 5)
-        lib_ms = _cuda_ms(torch, lambda: _library_sample(
-            torch, lib_in, grid, "bicubic"), 50)
-        print(f"warp_bicubic [{label}]: grid_sample(bicubic, border) "
-              f"differs from flow_remap by {lib_err:.3e} at most (its "
-              f"normalized grid)")
         # the twin's weights and tap order, -fmad=false: 1e-4 on 0..255.
-        # bytes: image, u, v in, one float out; operations: ~34 for the
+        # bytes: image, u, v in, one float out; operations: 34 for the
         # 4 + 4 weights, 32 for the 16 taps, 8 for the row sums, 6 for the
         # coordinates
-        res.add(tile_warp.K3B, label, err, 1e-4, ms, plain_ms,
-                work=(16 * px, 80 * px), library_ms=lib_ms)
+        res.add(tile_warp.K3B, label, err, 1e-4, t["K3b eager"], plain_ms,
+                work=(16 * px, 80 * px), library_ms=t["grid_sample eager"])
 
 
 def _linearization(torch, dev, gen, n, h, w):
@@ -1381,6 +1553,16 @@ def main(argv=None) -> int:
         help="the parent commit's meshrecon_torch/csrc/raster.cu (from an "
              "unpacked copy of that tree): its K1 and K5, built apart, are "
              "timed against this tree's in the raster phase")
+    parser.add_argument(
+        "--parent-warp", metavar="WARP_CU",
+        help="the parent commit's meshrecon_torch/csrc/warp.cu: its K3b, "
+             "built apart, is timed against this tree's and must equal it "
+             "bit for bit")
+    parser.add_argument(
+        "--parent-roofline", metavar="ROOFLINE_CU",
+        help="the parent commit's meshrecon_torch/csrc/roofline.cu: its R2, "
+             "built apart, is timed against this tree's and must equal it "
+             "bit for bit")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -1432,14 +1614,16 @@ def main(argv=None) -> int:
     res = Results()
     kernel_phases(torch, dev, res, state.from_numpy(args_np, dev))
     binning_phase(torch, dev, res, state.from_numpy(args_np, dev))
-    parent = None
-    if args.parent_raster:
-        parent = build_parent_raster(args.parent_raster)
+    parent = {name: build_parent(src) for name, src in (
+        ("raster", args.parent_raster), ("warp", args.parent_warp),
+        ("roofline", args.parent_roofline)) if src}
     raster_launches = raster_phase(torch, dev, res,
-                                   state.from_numpy(args_np, dev), parent)
-    roof, roof_launches = roofline_phase(torch, dev, res)
+                                   state.from_numpy(args_np, dev),
+                                   parent.get("raster"))
+    roof, roof_launches = roofline_phase(torch, dev, res,
+                                         parent.get("roofline"))
     breakdown_phase(torch, dev, roof["launch_graph_us"])
-    k3b_phase(torch, dev, res)
+    k3b_phase(torch, dev, res, args_np, parent.get("warp"))
     k6_phase(torch, dev, res)
     torch.cuda.synchronize()
     solver_launches = solver_check(torch, dev)

@@ -20,15 +20,23 @@
 // shared memory ~10%. The tail of n % 4 floats goes to the first threads
 // of CTA 0, one float each. The wrapper requires 16-byte aligned pointers.
 //
-// R2 (mr_roofline_fma): one thread per element; each keeps x and acc in
-// registers and runs `inner` dependent acc = fma(acc, x, 1e-7f) from
-// acc = x, then stores acc. Bound by operations: 2 * n * inner float32
-// operations, no memory traffic inside the loop. The library is built with
-// -fmad=false, so a written a * b + c would stay a multiply and an add:
-// __fmaf_rn is the fused operation that XLA's contraction gives the TPU
-// probe. With one dependent chain a thread, the rate depends on enough warps
-// being resident to hide the FMA latency; the block is the TPU probe's
-// (256, 512), not enlarged.
+// R2 (mr_roofline_fma): each element keeps x and acc in registers and runs
+// `inner` dependent acc = fma(acc, x, 1e-7f) from acc = x, then stores acc.
+// Bound by operations: 2 * n * inner float32 operations, no memory traffic
+// inside the loop. The library is built with -fmad=false, so a written
+// a * b + c would stay a multiply and an add: __fmaf_rn is the fused
+// operation that XLA's contraction gives the TPU probe. Design: a chain is
+// sequential, so the FMA latency is hidden inside each thread, which runs
+// kFmaChains independent elements interleaved, strided by the grid's thread
+// count (loads and stores coalesce). The grid comes from the SM count
+// (read once a device): a CTA takes one SM's share of the elements in
+// chains, rounded up to whole warps (mr_roofline_fma_shape; at the tool's
+// 256x512, 128 CTAs of 256 threads, two warps of four chains on each SM
+// sub-partition, so no SM carries a wave more than another). The loop steps
+// kFmaUnroll FMAs a chain between its counter tests, which would otherwise
+// take issue slots from the FMAs; a remainder loop takes `inner` modulo
+// that. Every element's chain is the same operations in the same order
+// whatever the geometry, so the output does not depend on it.
 //
 // R3 and R4 (mr_roofline_tiny): o = x + 1.0f over (rows, 128) in nblocks
 // CTAs, CTA b taking rows [b * rows / nblocks, (b + 1) * rows / nblocks).
@@ -56,6 +64,9 @@ constexpr int kTinyCols = 128;
 constexpr int kTinyRow4 = kTinyCols / 4;             // float4s a row
 constexpr int kTinyMaxThreads = 1024;
 constexpr int kTinyBatch = 8;                        // float4 loads a thread
+constexpr int kFmaChains = 4;    // independent chains a thread
+constexpr int kFmaUnroll = 64;   // FMAs a chain between loop tests
+constexpr int kFmaMaxThreads = 1024;
 
 __device__ __forceinline__ float4 scale4(float4 v) {
   const float scale = 1.0000001f;
@@ -98,16 +109,35 @@ roofline_copy_kernel(const float* __restrict__ x, float* __restrict__ o,
   copy_tail(x, o, n);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFmaMaxThreads)
 roofline_fma_kernel(const float* __restrict__ x, float* __restrict__ o,
                     int n, int inner) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const float xv = x[i];
-  float acc = xv;
-#pragma unroll 16
-  for (int k = 0; k < inner; ++k) acc = __fmaf_rn(acc, xv, 1e-7f);
-  o[i] = acc;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float xv[kFmaChains], acc[kFmaChains];
+#pragma unroll
+  for (int c = 0; c < kFmaChains; ++c) {
+    const long long i = first + c * stride;
+    xv[c] = i < n ? x[i] : 0.0f;  // a chain past n runs and is not stored
+    acc[c] = xv[c];
+  }
+  int k = 0;
+  for (; inner - k >= kFmaUnroll; k += kFmaUnroll) {
+#pragma unroll
+    for (int s = 0; s < kFmaUnroll; ++s)
+#pragma unroll
+      for (int c = 0; c < kFmaChains; ++c)
+        acc[c] = __fmaf_rn(acc[c], xv[c], 1e-7f);
+  }
+  for (; k < inner; ++k)
+#pragma unroll
+    for (int c = 0; c < kFmaChains; ++c)
+      acc[c] = __fmaf_rn(acc[c], xv[c], 1e-7f);
+#pragma unroll
+  for (int c = 0; c < kFmaChains; ++c) {
+    const long long i = first + c * stride;
+    if (i < n) o[i] = acc[c];
+  }
 }
 
 __device__ __forceinline__ float4 add_one4(float4 v) {
@@ -147,6 +177,36 @@ bool misaligned(const void* p) {
   return reinterpret_cast<unsigned long long>(p) & 15;
 }
 
+// R2's grid for n elements on sms SMs: {CTAs, threads a CTA, chains a
+// thread}. A CTA takes ceil(n / sms) elements, kFmaChains a thread, in
+// whole warps (32 to 1,024 threads); element first + c * stride for chain
+// c, stride = CTAs x threads.
+void fma_shape(int n, int sms, int* out) {
+  const long long per_sm = ((long long)n + sms - 1) / sms;
+  long long threads = (per_sm + kFmaChains - 1) / kFmaChains;
+  threads = std::min<long long>(
+      std::max<long long>((threads + 31) / 32 * 32, 32), kFmaMaxThreads);
+  out[0] = (int)(((long long)n + threads * kFmaChains - 1) /
+                 (threads * kFmaChains));
+  out[1] = (int)threads;
+  out[2] = kFmaChains;
+}
+
+// The current device's SM count, read once a device.
+cudaError_t sm_count(int* sms) {
+  static int cache[64] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int& c = cache[dev & 63];
+  if (c == 0) {
+    e = cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  *sms = c;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // x, o: n floats, 16-byte aligned
@@ -166,9 +226,22 @@ MR_EXPORT int mr_roofline_fma(const float* x, float* o, int n, int inner,
                               void* stream) {
   if (n < 0 || inner < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  roofline_fma_kernel<<<mr_blocks(n, kThreads), kThreads, 0,
-                        (cudaStream_t)stream>>>(x, o, n, inner);
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  int shape[3];
+  fma_shape(n, sms, shape);
+  roofline_fma_kernel<<<shape[0], shape[1], 0, (cudaStream_t)stream>>>(
+      x, o, n, inner);
   return (int)cudaGetLastError();
+}
+
+// R2's launch geometry for n elements on sms SMs (the launch reads the
+// device's own count): out = {CTAs, threads a CTA, chains a thread}
+MR_EXPORT int mr_roofline_fma_shape(int n, int sms, int* out) {
+  if (n < 1 || sms < 1) return (int)cudaErrorInvalidValue;
+  fma_shape(n, sms, out);
+  return 0;
 }
 
 // x, o: (rows, 128) floats, 16-byte aligned, rows a multiple of nblocks

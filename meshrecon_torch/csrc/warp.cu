@@ -20,9 +20,8 @@
 // border. It repeats meshrecon_torch.flow.remap.bicubic_sample operation
 // for operation: the weights are the twin's polynomials in the fraction t
 // (not the TPU kernel's |t|-piecewise form), the 16 taps are summed over
-// the columns j inside the rows i. Each thread computes its 4 + 4 weights
-// once and gathers its 16 taps; there is no residual budget, so unlike the
-// TPU kernel (r_row=6, r_col=8) nothing is clamped at motion edges.
+// the columns j inside the rows i. There is no residual budget, so unlike
+// the TPU kernel (r_row=6, r_col=8) nothing is clamped at motion edges.
 //
 // K3c replaces the same _warp_tile_kernel called with a valid mask
 // (tile_warp_sample_batched(..., valid=) from the plane sweep,
@@ -32,13 +31,17 @@
 // by zero, and invalid pixels (behind the side camera, off its frame) hold
 // arbitrary coordinates, so the kernel skips their taps altogether.
 //
-// What bounds them here: device-memory bandwidth. K2 reads 4 floats per
-// pixel of coordinates and sources' taps and writes 2; K3 reads 3 and
-// writes 1; K3b reads 3 and writes 1 too, with ~70 flops a pixel for its
-// weights and 16 taps (bytes still bound it: 16 B against 67 TFLOP/s);
-// K3c reads 2 floats and a byte, plus the taps where valid, and writes 1.
-// The taps of neighbouring threads share cache lines, so the gathers
-// mostly hit L1/L2.
+// What bounds them here: K2, K3 and K3c device-memory bandwidth. K2 reads
+// 4 floats per pixel of coordinates and sources' taps and writes 2; K3
+// reads 3 and writes 1; K3c reads 2 floats and a byte, plus the taps where
+// valid, and writes 1. The taps of neighbouring threads share cache lines,
+// so the gathers mostly hit L1/L2. K3b reads 3 floats and writes 1 too,
+// but on the card its bytes do not bound it: 16 tap loads and ~80 float
+// operations a pixel, with their addressing, keep it near half its bytes
+// bound (PERF.md §6, "PR 10"), and a warp's tap loads wait on L1. Its
+// first design (a 1-D grid, a 64-bit division a pixel, 16 clamped
+// addresses) was slower, and so was every variant that staged a CTA's
+// window of taps in shared memory (meshrecon_torch/tools/kernel_variants).
 //
 // Design: the TPU kernels exist because TPU gathers are slow; they fit a
 // per-tile integer base offset and enumerate bounded residual taps, and
@@ -51,7 +54,13 @@
 // thread divides to find its pixel; where the width is a multiple of 4 (the
 // pyramid's 640 and 320) each thread takes 4 pixels of a row with one float4
 // load of u and of v and one float4 store, and it reads the image taps
-// through the read-only cache (__ldg).
+// through the read-only cache (__ldg). K3b runs on the same grid, two
+// pixels a thread 32 columns apart (coalesced scalar loads and stores, any
+// width); a warp whose pixels' 4x4 windows all lie inside the image reads
+// its taps from one corner pointer with no clamp, any other warp clamps
+// each tap, and both sum the same taps in the same order.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -145,44 +154,125 @@ __device__ __forceinline__ void cubic_weights(float t, float w[4]) {
   w[3] = a * (t2 - t3);
 }
 
-__global__ void __launch_bounds__(kThreads)
-warp_bicubic_kernel(const float* __restrict__ image,
-                    const float* __restrict__ u, const float* __restrict__ v,
-                    float* __restrict__ out, long long total, int height,
-                    int width) {
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const long long plane = (long long)height * width;
-  const long long img = idx / plane;
-  const int pix = (int)(idx - img * plane);
-  const int r = pix / width;
-  const int c = pix - r * width;
-  const float col = (float)c + u[idx];
-  const float row = (float)r + v[idx];
+// K3b's CTA: K3's (a warp across a row, kK3Rows rows, images on gridDim.z)
+// with kK3bPix pixels a thread, kK3Cols columns apart, so that each tap
+// load of a warp reads 32 neighbouring columns (a float4 a thread would
+// spread it over 128). The minimum of CTAs an SM caps the registers so that
+// more warps hide the tap loads' latency: of 1, 2, 4 and 8 pixels a thread
+// and 4 to 8 CTAs an SM, timed on the card, 2 and 6 were the fastest.
+constexpr int kK3bPix = 2;
+constexpr int kK3bMinBlocks = 6;
+
+// the tap origin's float clamp before the conversion: it keeps far-off (or
+// NaN) coordinates in int range; every tap they reach is a border tap
+// either way, as the twin's integer clamp gives
+__device__ __forceinline__ int cubic_origin(float x, int n) {
+  return (int)fminf(fmaxf(floorf(x), -3.0f), (float)(n + 2));
+}
+
+// The twin's sum over the 16 taps, the columns j inside the rows i, each
+// tap at row r0-1+i and column c0-1+j: clamped to the image, or read from
+// one pointer at the window's corner with no clamp (the caller knows the
+// window lies inside). Both read the same taps in the same order.
+template <bool kClamped>
+__device__ __forceinline__ float bicubic_sum(const float* __restrict__ src,
+                                             float col, float row, int h,
+                                             int w) {
   const float fc0 = floorf(col);
   const float fr0 = floorf(row);
   float wc[4], wr[4];
   cubic_weights(col - fc0, wc);
   cubic_weights(row - fr0, wr);
-  // the float clamp before the conversion keeps far-off (or NaN)
-  // coordinates in int range; every tap they reach is a border tap either
-  // way, as the twin's integer clamp gives
-  const int c0 = (int)fminf(fmaxf(fc0, -3.0f), (float)(width + 2));
-  const int r0 = (int)fminf(fmaxf(fr0, -3.0f), (float)(height + 2));
+  const int c0 = cubic_origin(col, w);
+  const int r0 = cubic_origin(row, h);
+  const float* corner = src + (r0 - 1) * w + (c0 - 1);  // unclamped only
   int cj[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) cj[j] = min(max(c0 + j - 1, 0), width - 1);
-  const float* src = image + img * plane;
+  for (int j = 0; j < 4; ++j) cj[j] = min(max(c0 + j - 1, 0), w - 1);
   float acc = 0.0f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float* line = src + min(max(r0 + i - 1, 0), height - 1) * width;
+    const float* line =
+        kClamped ? src + min(max(r0 + i - 1, 0), h - 1) * w : corner + i * w;
     float row_acc = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) row_acc = row_acc + wc[j] * line[cj[j]];
+    for (int j = 0; j < 4; ++j)
+      row_acc = row_acc + wc[j] * __ldg(line + (kClamped ? cj[j] : j));
     acc = acc + wr[i] * row_acc;
   }
-  out[idx] = acc;
+  return acc;
+}
+
+// A warp whose every pixel's window lies inside the image reads its taps
+// with no clamp (a row pointer and the column offsets 0-3); any other warp
+// clamps each tap. The choice is warp-uniform, so the warp's pixels share
+// one path. kCount (mr_warp_bicubic_paths only): count the warps of valid
+// rows on the unclamped path.
+template <bool kCount>
+__global__ void __launch_bounds__(kK3Cols * kK3Rows, kK3bMinBlocks)
+warp_bicubic_kernel(const float* __restrict__ image,
+                    const float* __restrict__ u, const float* __restrict__ v,
+                    float* __restrict__ out, int height, int width,
+                    int* __restrict__ unclamped) {
+  const int c_first = blockIdx.x * (kK3Cols * kK3bPix) + threadIdx.x;
+  const int r_want = blockIdx.y * kK3Rows + threadIdx.y;
+  // a thread past the edge samples the last row or column and stores
+  // nothing: every lane takes part in the warp's vote
+  const int r = min(r_want, height - 1);
+  const long long plane = (long long)height * width;
+  const float* src = image + blockIdx.z * plane;
+  const long long at = blockIdx.z * plane + (long long)r * width;
+  const float fr = (float)r;
+  float col[kK3bPix], row[kK3bPix];
+  bool inside = true;
+#pragma unroll
+  for (int k = 0; k < kK3bPix; ++k) {
+    const int c = min(c_first + kK3Cols * k, width - 1);
+    col[k] = (float)c + __ldg(u + at + c);
+    row[k] = fr + __ldg(v + at + c);
+    const int c0 = cubic_origin(col[k], width);
+    const int r0 = cubic_origin(row[k], height);
+    inside = inside && c0 >= 1 && c0 <= width - 3 && r0 >= 1 &&
+             r0 <= height - 3;
+  }
+  float o[kK3bPix];
+  if (__all_sync(0xffffffffu, inside)) {
+    if (kCount && threadIdx.x == 0 && r_want < height) atomicAdd(unclamped, 1);
+#pragma unroll
+    for (int k = 0; k < kK3bPix; ++k)
+      o[k] = bicubic_sum<false>(src, col[k], row[k], height, width);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kK3bPix; ++k)
+      o[k] = bicubic_sum<true>(src, col[k], row[k], height, width);
+  }
+  if (r_want >= height) return;
+#pragma unroll
+  for (int k = 0; k < kK3bPix; ++k)
+    if (c_first + kK3Cols * k < width) out[at + c_first + kK3Cols * k] = o[k];
+}
+
+template <bool kCount>
+int launch_bicubic(const float* image, const float* u, const float* v,
+                   float* out, int* unclamped, int n, int height, int width,
+                   void* stream) {
+  if (n < 0 || height < 0 || width < 0 || height > 65535LL * kK3Rows ||
+      (long long)height * width > INT_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((long long)n * height * width == 0) return 0;
+  const long long plane = (long long)height * width;
+  const dim3 block(kK3Cols, kK3Rows);
+  cudaStream_t s = (cudaStream_t)stream;
+  for (int z0 = 0; z0 < n; z0 += 65535) {  // gridDim.z <= 65535
+    const dim3 grid((width + kK3Cols * kK3bPix - 1) / (kK3Cols * kK3bPix),
+                    (height + kK3Rows - 1) / kK3Rows,
+                    n - z0 < 65535 ? n - z0 : 65535);
+    const long long off = z0 * plane;
+    warp_bicubic_kernel<kCount><<<grid, block, 0, s>>>(
+        image + off, u + off, v + off, out + off, height, width, unclamped);
+  }
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -265,12 +355,27 @@ MR_EXPORT int mr_warp_bilinear(const float* image, const float* u,
 MR_EXPORT int mr_warp_bicubic(const float* image, const float* u,
                               const float* v, float* out, int n, int height,
                               int width, void* stream) {
-  const long long total = (long long)n * height * width;
-  if (total == 0) return 0;
-  warp_bicubic_kernel<<<mr_blocks(total, kThreads), kThreads, 0,
-                        (cudaStream_t)stream>>>(image, u, v, out, total,
-                                                height, width);
-  return (int)cudaGetLastError();
+  return launch_bicubic<false>(image, u, v, out, nullptr, n, height, width,
+                               stream);
+}
+
+// mr_warp_bicubic that also adds to unclamped[0] (a device int) the warps of
+// valid rows whose taps it read unclamped: the path split, for the checks
+MR_EXPORT int mr_warp_bicubic_paths(const float* image, const float* u,
+                                    const float* v, float* out,
+                                    int* unclamped, int n, int height,
+                                    int width, void* stream) {
+  return launch_bicubic<true>(image, u, v, out, unclamped, n, height, width,
+                              stream);
+}
+
+// K3b's geometry: out = {threads across a row, rows a CTA, pixels a thread
+// (kK3Cols columns apart)}
+MR_EXPORT int mr_warp_bicubic_shape(int* out) {
+  out[0] = kK3Cols;
+  out[1] = kK3Rows;
+  out[2] = kK3bPix;
+  return 0;
 }
 
 // image, scol, srow, out: (n, height, width) float; valid: the same shape,

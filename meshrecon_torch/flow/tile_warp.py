@@ -15,7 +15,11 @@ budget to clamp.
   ``raster.fragment.nearest_sample`` / ``bilinear_sample``.
 - :func:`tile_warp_flow_batched`: warp of a stack by a flow field, K3 with
   taps=2 (bilinear; plain version ``flow.remap.bilinear_warp``) and K3b
-  with taps=4 (Keys bicubic; plain version ``flow.remap.flow_remap``).
+  with taps=4 (Keys bicubic; plain version ``flow.remap.flow_remap``). K3b
+  runs two pixels a thread, 32 columns apart, on K3's 3-D grid; a warp
+  whose pixels' 4x4 tap windows all lie inside the image reads them with
+  no clamp, any other warp clamps each tap (:func:`bicubic_warp_paths`
+  mirrors that choice; :func:`warp_bicubic_paths` counts it on the card).
 - :func:`tile_warp_bicubic`: K3b's absolute-coordinate form.
 - :func:`tile_warp_sample_batched` (K3c, the valid-mask form): bilinear
   sample of a stack at absolute coordinates, exactly 0.0 where the mask is
@@ -27,7 +31,8 @@ from __future__ import annotations
 
 import torch
 
-from meshrecon_torch.kernels._build import Kernel, check_cuda, check_like
+from meshrecon_torch.kernels._build import (Kernel, check_cuda, check_like,
+                                            library)
 
 K2 = Kernel("sample_shadow_frame", "mr_sample_shadow_frame",
             "meshrecon_torch/csrc/warp.cu", "meshrecon/flow/tile_warp.py:256")
@@ -39,6 +44,55 @@ K3C = Kernel("sample_bilinear_masked", "mr_sample_bilinear_masked",
 K3B = Kernel("warp_bicubic", "mr_warp_bicubic",
              "meshrecon_torch/csrc/warp.cu",
              "meshrecon/flow/tile_warp.py:97 (taps=4)")
+
+# K3b's geometry (csrc/warp.cu, mr_warp_bicubic_shape): threads across a
+# row, rows a CTA, pixels a thread (K3B_COLS columns apart)
+K3B_COLS, K3B_ROWS, K3B_PIX = 32, 8, 2
+
+
+def _cubic_origin(x, n: int):
+    """K3b's tap origin: floor(x) clamped to [-3, n + 2] as a float (NaN
+    maps to -3, as C's fmaxf gives), then to int."""
+    return torch.nan_to_num(torch.floor(x), nan=-3.0).clamp(
+        -3.0, n + 2.0).to(torch.int64)
+
+
+def bicubic_warp_paths(u, v):
+    """Which warps of K3b read their taps with no clamp, as the kernel
+    decides: a warp takes ``K3B_COLS * K3B_PIX`` consecutive columns of one
+    row (lanes past the last column sample it), and reads unclamped when
+    every one of its pixels' 4x4 windows, at origin (c0 - 1, r0 - 1), lies
+    inside the image. u, v: (..., H, W) float32. Returns a bool tensor
+    (..., H, ceil(W / span))."""
+    h, w = u.shape[-2:]
+    cols = torch.arange(w, dtype=torch.float32, device=u.device)
+    rows = torch.arange(h, dtype=torch.float32, device=u.device)[:, None]
+    c0 = _cubic_origin(cols + u, w)
+    r0 = _cubic_origin(rows + v, h)
+    inside = (c0 >= 1) & (c0 <= w - 3) & (r0 >= 1) & (r0 <= h - 3)
+    span = K3B_COLS * K3B_PIX
+    blocks = -(-w // span)
+    lanes = torch.arange(blocks * span, device=u.device).clamp(max=w - 1)
+    return inside[..., lanes].reshape(*inside.shape[:-1], blocks,
+                                      span).all(-1)
+
+
+def warp_bicubic_paths(images, u, v):
+    """K3b on CUDA tensors through its counting entry
+    (``mr_warp_bicubic_paths``, ctypes): (out, the warps that read their
+    taps unclamped). A check of the path split; it is not a launch of the
+    port's path and leaves ``K3B.launches`` alone."""
+    check_like("warp_bicubic_paths", images, u, v)
+    h, w = images.shape[-2:]
+    out = torch.empty_like(images)
+    count = torch.zeros(1, dtype=torch.int32, device=images.device)
+    code = library().cdll.mr_warp_bicubic_paths(
+        images.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
+        count.data_ptr(), images.numel() // (h * w), h, w,
+        torch.cuda.current_stream(images.device).cuda_stream)
+    if code:
+        raise RuntimeError(f"mr_warp_bicubic_paths: CUDA error {code}")
+    return out, int(count.item())
 
 
 def tile_warp_sample2_batched(srcs_a, srcs_b, scols, srows,

@@ -11,7 +11,9 @@ edited source rebuilds and an unchanged one loads at once. Nothing is
 built until a kernel is first launched: importing this module needs
 neither ``nvcc``, ``g++`` nor a GPU. A failed build or import raises:
 there is no other way to launch. The helpers that are not launches
-(``mr_error_string``, ``mr_hs_block_shape``) are called through ctypes.
+(``mr_error_string``, the launch geometries ``mr_hs_block_shape``,
+``mr_roofline_fma_shape`` and ``mr_warp_bicubic_shape``, and K3b's path
+count ``mr_warp_bicubic_paths``) are called through ctypes.
 
 Every kernel's wrapper owns a :class:`Kernel`, which launches through the
 extension module on ``torch.cuda.current_stream()``, raises on a non-zero
@@ -195,6 +197,14 @@ def library() -> Library:
     cdll.mr_error_string.restype = ctypes.c_char_p
     cdll.mr_hs_block_shape.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     cdll.mr_hs_block_shape.restype = ctypes.c_int
+    cdll.mr_roofline_fma_shape.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    cdll.mr_roofline_fma_shape.restype = ctypes.c_int
+    cdll.mr_warp_bicubic_shape.argtypes = [ctypes.c_void_p]
+    cdll.mr_warp_bicubic_shape.restype = ctypes.c_int
+    cdll.mr_warp_bicubic_paths.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    cdll.mr_warp_bicubic_paths.restype = ctypes.c_int
     return Library(cdll, ext, path, seconds, log)
 
 

@@ -16,7 +16,10 @@ repetition counts:
    ``torch.mul(x, 1.0000001, out=y)``.
 2. float32 FMA rate: R2 (``fma_chain``, 2,048 dependent fused
    multiply-adds an element from ``acc = x``) on one (256, 512) block, 100
-   calls. No PyTorch call computes it.
+   calls. No PyTorch call computes it. The kernel hides the FMA latency
+   inside each thread (four elements' chains interleaved) on a grid sized
+   from the SM count (:func:`fma_shape`), so the rate it reads is the
+   card's, not the first design's loop overhead and wave imbalance.
 3. bf16 matmul rate: 500 chained 1024^3 products, each renormalized by
    x 0.18 (``torch.matmul``, as the reference's is ``jnp.dot``, not
    Pallas), against the tensor cores' 989 TFLOP/s.
@@ -91,6 +94,9 @@ FMA_ADD = 1e-7
 INNER = 2048            # FMAs an element in one R2 call
 TINY_COLS = 128
 
+FMA_CHAINS = 4          # R2's independent chains a thread (csrc)
+FMA_MAX_THREADS = 1024
+
 COPY_SHAPE = (4096, 4096)
 FMA_SHAPE = (256, 512)
 MM_N = 1024
@@ -115,6 +121,21 @@ def fma_chain_plain(x, inner: int = INNER):
     for _ in range(inner):
         acc = (acc.double() * xd + add).float()
     return acc
+
+
+def fma_shape(n: int, sms: int):
+    """R2's launch geometry for ``n`` elements on ``sms`` SMs, as
+    ``csrc/roofline.cu``'s ``mr_roofline_fma_shape`` computes it: (CTAs,
+    threads a CTA, chains a thread). A CTA takes one SM's share of the
+    elements, ``FMA_CHAINS`` a thread, in whole warps; thread t of the grid
+    runs elements t + c * (CTAs x threads) for c < chains that lie below
+    n."""
+    if n < 1 or sms < 1:
+        raise ValueError(f"fma_shape: n {n} and sms {sms} must be >= 1")
+    per_sm = -(-n // sms)
+    threads = -(-per_sm // FMA_CHAINS)
+    threads = min(max(-(-threads // 32) * 32, 32), FMA_MAX_THREADS)
+    return -(-n // (threads * FMA_CHAINS)), threads, FMA_CHAINS
 
 
 def add_one_plain(x):

@@ -28,6 +28,7 @@ against their plain runs on the CPU; the roofline and breakdown tools on
 the card.
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -38,6 +39,7 @@ from meshrecon_torch import parity, problems, state
 from meshrecon_torch.flow import jacobi, tile_warp
 from meshrecon_torch.flow.remap import bilinear_warp, flow_remap
 from meshrecon_torch.flow.variational import _hs_sweeps, _hs_sweeps_cheb
+from meshrecon_torch.kernels import library
 from meshrecon_torch.pipeline.fused import (fused_main_update_batched,
                                             fused_sweep_update_batched)
 from meshrecon_torch.raster import binned, rasterizer
@@ -403,25 +405,98 @@ def test_sample_shadow_frame_bilinear_mode(dev, n, h, w):
     assert (ob - bilinear_sample(b, col, row)).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("n,h,w", [(2, 31, 45), (12, 120, 160)])
-def test_warp_bicubic(dev, n, h, w):
-    """K3b against flow_remap, with flows that reach off the frame."""
+def _nan_aware_err(out, ref):
+    """Max |out - ref|, where both must be NaN at the same pixels."""
+    assert torch.equal(out.isnan(), ref.isnan())
+    keep = ~out.isnan()
+    return (out[keep] - ref[keep]).abs().max().item()
+
+
+@pytest.mark.parametrize("n,h,w,field", [
+    (2, 31, 45, "noise"), (12, 120, 160, "noise"), (3, 37, 53, "noise"),
+    (2, 45, 200, "smooth"), (12, 480, 640, "smooth"), (3, 37, 130, "far"),
+    (2, 9, 70, "far")])
+def test_warp_bicubic(dev, n, h, w, field):
+    """K3b against flow_remap: flows that reach off the frame (noise, in
+    ragged shapes: rows not a multiple of 8, columns not of 64); a smooth
+    field whose warps read their taps unclamped in the interior and clamp
+    at the borders; NaN and far-off coordinates (NaN where flow_remap is
+    NaN). The kernel's count of unclamped warps equals its mirror's."""
     g = torch.Generator().manual_seed(6)
     img = (255 * torch.rand((n, h, w), generator=g)).to(dev)
-    u = (6 * torch.randn((n, h, w), generator=g)).to(dev)
-    v = (6 * torch.randn((n, h, w), generator=g)).to(dev)
+    scale = 6.0 if field == "noise" else 1.5
+    u = (scale * torch.randn((n, h, w), generator=g)).to(dev)
+    v = (scale * torch.randn((n, h, w), generator=g)).to(dev)
+    if field == "smooth":
+        u = torch.nn.functional.avg_pool2d(u[:, None], 9, 1, 4)[:, 0]
+        v = torch.nn.functional.avg_pool2d(v[:, None], 9, 1, 4)[:, 0]
+    if field == "far":
+        u.view(-1)[::37] = float("nan")
+        v.view(-1)[5::41] = float("nan")
+        u.view(-1)[7::43] = 1e9
+        v.view(-1)[3::47] = -1e9
+        u.view(-1)[11::53] = -3e38
+    u, v = u.contiguous(), v.contiguous()
     before = (tile_warp.K3.launches, tile_warp.K3B.launches)
     out = tile_warp.tile_warp_flow_batched(img, u, v, taps=4)
     assert (tile_warp.K3.launches, tile_warp.K3B.launches) == (
         before[0], before[1] + 1)
     ref = flow_remap(torch.stack([u, v], -1), img)
-    assert (out - ref).abs().max().item() <= 1e-4
+    if field == "far":
+        # flow_remap's int64 index of -3e38 is undefined; compare the rest
+        keep = ~(u.view(-1) < -1e30)
+        assert _nan_aware_err(out.view(-1)[keep], ref.view(-1)[keep]) <= 1e-4
+    else:
+        assert (out - ref).abs().max().item() <= 1e-4
+    counted, unclamped = tile_warp.warp_bicubic_paths(img, u, v)
+    assert tile_warp.K3B.launches == before[1] + 1
+    assert torch.equal(counted.nan_to_num(nan=-1.0), out.nan_to_num(nan=-1.0))
+    paths = tile_warp.bicubic_warp_paths(u, v)
+    assert unclamped == int(paths.sum().item())
+    if field == "smooth":
+        assert paths.any() and not paths.all()
     cols = torch.arange(w, dtype=torch.float32, device=dev)
     rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-    scol, srow = cols + u, rows + v
-    out = tile_warp.tile_warp_bicubic(img, scol, srow)
-    ref = tile_warp.tile_warp_bicubic(img.cpu(), scol.cpu(), srow.cpu())
-    assert (out.cpu() - ref).abs().max().item() <= 1e-4
+    if field != "far":
+        scol, srow = cols + u, rows + v
+        out = tile_warp.tile_warp_bicubic(img, scol, srow)
+        ref = tile_warp.tile_warp_bicubic(img.cpu(), scol.cpu(), srow.cpu())
+        assert (out.cpu() - ref).abs().max().item() <= 1e-4
+
+
+def test_warp_bicubic_paths_agree(dev):
+    """The unclamped and the clamped path give the same bits: a smooth
+    field, then the same field with one pixel of every warp sent 1e9 px
+    off, which puts every warp on the clamped path; the other pixels
+    must not move by a bit."""
+    g = torch.Generator().manual_seed(12)
+    n, h, w = 3, 64, 256
+    img = (255 * torch.rand((n, h, w), generator=g)).to(dev)
+    u, v = ((1.5 * torch.randn((2, n, h, w), generator=g)).to(dev))
+    u = torch.nn.functional.avg_pool2d(u[:, None], 9, 1, 4)[:, 0]
+    v = torch.nn.functional.avg_pool2d(v[:, None], 9, 1, 4)[:, 0]
+    span = tile_warp.K3B_COLS * tile_warp.K3B_PIX
+    off = u.clone()
+    off[..., span - 1::span] = 1e9
+    a, unclamped_a = tile_warp.warp_bicubic_paths(img, u.contiguous(),
+                                                  v.contiguous())
+    b, unclamped_b = tile_warp.warp_bicubic_paths(img, off.contiguous(),
+                                                  v.contiguous())
+    assert unclamped_a > n * h and unclamped_b == 0
+    keep = torch.ones(w, dtype=torch.bool, device=dev)
+    keep[span - 1::span] = False
+    assert torch.equal(a[..., keep], b[..., keep])
+    assert torch.equal(a, tile_warp.tile_warp_flow_batched(
+        img, u.contiguous(), v.contiguous(), taps=4))
+
+
+def test_warp_bicubic_shape(dev):
+    """K3b's geometry in C (mr_warp_bicubic_shape) is the one its Python
+    mirror (tile_warp.K3B_*) assumes."""
+    out = (ctypes.c_int * 3)()
+    assert library().cdll.mr_warp_bicubic_shape(out) == 0
+    assert tuple(out) == (tile_warp.K3B_COLS, tile_warp.K3B_ROWS,
+                          tile_warp.K3B_PIX)
 
 
 @pytest.mark.parametrize("iters", [1, 2, 60])
@@ -751,8 +826,12 @@ def test_roofline_copy(dev, shape):
     assert torch.equal(out, roofline.copy_scale_plain(x))
 
 
-@pytest.mark.parametrize("shape,inner", [((256, 512), 2048), ((5, 77), 3)])
+@pytest.mark.parametrize("shape,inner", [((256, 512), 2048), ((5, 77), 3),
+                                         ((100003,), 2050)])
 def test_roofline_fma(dev, shape, inner):
+    """R2 against its plain version: the tool's block; n below one warp a
+    chain and inner below the unroll; a prime n (chains past n in the last
+    CTAs) with inner not a multiple of the unroll."""
     g = torch.Generator().manual_seed(9)
     x = (0.999 + 0.002 * torch.rand(shape, generator=g)).to(dev)
     before = roofline.R2.launches
@@ -760,6 +839,16 @@ def test_roofline_fma(dev, shape, inner):
     assert roofline.R2.launches == before + 1
     ref = roofline.fma_chain_plain(x, inner)
     assert ((out - ref).abs() / ref.abs()).max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("n", [256 * 512, 5 * 77, 7919, 100003, 1_000_003])
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_roofline_fma_shape(dev, n, sms):
+    """R2's geometry in C (mr_roofline_fma_shape) equals its Python mirror,
+    which tests/test_torch_roofline_fma.py holds on the CPU."""
+    out = (ctypes.c_int * 3)()
+    assert library().cdll.mr_roofline_fma_shape(n, sms, out) == 0
+    assert tuple(out) == roofline.fma_shape(n, sms)
 
 
 @pytest.mark.parametrize("rows,nblocks", [
