@@ -105,7 +105,27 @@ in the same alternating rounds, and must equal them bit for bit.
    Every kernel of each run's path must launch, the OBJ must have faces,
    and its vertices must lie on the scene's fitted sphere within the run's
    bounds. Prints the wall seconds of each run and of each stage.
-9. Prints one JSON line of per-kernel results, then the device line
+9. The video entry points, three phases, each with its wall seconds:
+   ``video``: a 640x480 MJPG (koule-tr's 31 frames) whose B, G and R
+   planes are the synthetic sphere frames of seeds 3, 4 and 5 made on
+   the card, each times a per-frame, per-channel gain 1 + 0.2 sin(f + 2c),
+   through ``cli.main`` with ``-e --ensemble-seeds 3,13``: SETUP, BIN,
+   K1, K2, K3, K3c and K4 must launch, the exposure solve must run on the
+   card (its rounds and ms printed, with the decode seconds and the
+   spread of the gains times the injected ones) and equal the plain CPU
+   solve of the same samples (the same rounds, gains within 1e-4 of the
+   largest), the mesh must hold the default's bound. ``scenes -V``: two YAMLs of one gray clip (the seed-3
+   frames) with ``-V -n 1 --depth-mode flow``, run from a dumps folder:
+   SETUP, BIN, K1, K2, K3, K3b and K4 must launch, both meshes must be
+   written and finite, the PNG dumps must be those the printed bundles
+   imply, and ``torch.cuda.memory_allocated`` must fall by the clip's
+   bytes at the first scene's ``release_frames`` (both readings
+   printed). ``drivers``: the flow driver (K3 and K3b must launch) and
+   the raster driver (SETUP, BIN and K1) in a scratch folder, the raster
+   driver's depth against ``raster.reference.render_depth_reference``
+   (coverage disagreement under 1%, 99% of depths within 1e-2 NDC:
+   tests/test_raster.py's golden-scene bounds).
+10. Prints one JSON line of per-kernel results, then the device line
    ``{"ok": true, "device": {...}}`` last. Each kernel's ``launches`` is
    the count of the path it serves, read just after that path's run with
    the counters reset just before: SETUP, BIN, K1, K2, K3, K3c and K4 from
@@ -1497,9 +1517,6 @@ def run_e2e(torch, dev, label, flags, path):
     counters reset just before, every kernel of ``path`` must launch.
     Returns the launch counts."""
     from meshrecon_torch import cli
-    from meshrecon_torch.io.obj import read_mesh
-    from meshrecon_torch.io.synthetic import fit_sphere
-    from meshrecon_torch.io.tracks import load_tracks
     from meshrecon_torch.kernels import all_kernels
     from meshrecon_torch.utils.profiling import StageTimer
 
@@ -1527,22 +1544,357 @@ def run_e2e(torch, dev, label, flags, path):
     if rc != 0 or missing:
         raise AssertionError(f"e2e {label}: rc {rc}, kernels not launched "
                              f"{missing}")
+    _check_sphere_mesh(obj, f"e2e {label}", E2E_BOUNDS[label])
+    return launches
+
+
+def _check_sphere_mesh(obj, label, bounds=None):
+    """The OBJ must have faces and finite vertices, and with ``bounds``
+    (median, p90 of |r - R| / R) lie on koule-tr's fitted sphere within
+    them; the figures are printed either way."""
+    from meshrecon_torch.io.obj import read_mesh
+    from meshrecon_torch.io.synthetic import fit_sphere
+    from meshrecon_torch.io.tracks import load_tracks
+
     mesh = read_mesh(str(obj))
-    track = load_tracks(TRACK)
-    center, radius = fit_sphere(track.bundles)
+    center, radius = fit_sphere(load_tracks(TRACK).bundles)
     v3 = mesh.vertices[:, :3] / mesh.vertices[:, 3:4]
     err = np.abs(np.linalg.norm(v3 - center, axis=1) - radius) / radius
     med, p90 = float(np.median(err)), float(np.percentile(err, 90))
-    bound_med, bound_p90 = E2E_BOUNDS[label]
-    print(f"e2e {label}: {len(mesh.faces)} faces, {len(mesh.vertices)} "
+    bound_med, bound_p90 = bounds or (None, None)
+    print(f"{label}: {len(mesh.faces)} faces, {len(mesh.vertices)} "
           f"vertices; |r - R| / R median {med:.4f} (bound {bound_med}), "
           f"p90 {p90:.4f} (bound {bound_p90})")
     if not len(mesh.faces) or not np.isfinite(v3).all():
-        raise AssertionError(f"e2e {label}: empty or non-finite mesh")
-    if not (med <= bound_med and p90 <= bound_p90):
-        raise AssertionError(f"e2e {label}: mesh off the sphere (median "
-                             f"{med}, p90 {p90})")
+        raise AssertionError(f"{label}: empty or non-finite mesh")
+    if bounds and not (med <= bound_med and p90 <= bound_p90):
+        raise AssertionError(f"{label}: mesh off the sphere (median {med}, "
+                             f"p90 {p90})")
+
+
+OUT_DIR = Path("build") / "chip_smoke"  # git-ignored
+VIDEO_SEEDS = "3,13"  # the video phase's ensemble
+RASTER_REF_BOUNDS = (0.01, 0.99, 1e-2)  # tests/test_raster.py golden scene
+
+
+def _write_clip(path, planes):
+    """An MJPG AVI at 24 fps of (F, H, W, 3) uint8 BGR frames."""
+    import cv2
+
+    f_count, h, w, _ = planes.shape
+    wr = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 24,
+                         (w, h))
+    if not wr.isOpened():
+        raise RuntimeError(f"cv2 cannot write {path}")
+    for f in range(f_count):
+        wr.write(planes[f])
+    wr.release()
+
+
+def _scene_yaml(clip_name, name):
+    """A copy of koule-tr's YAML beside its clip, naming ``clip_name``."""
+    text = Path(TRACK).read_text()
+    if "koule-perlin.mkv" not in text:
+        raise RuntimeError(f"{TRACK} no longer names koule-perlin.mkv")
+    yaml = OUT_DIR / name
+    yaml.write_text(text.replace("koule-perlin.mkv", clip_name))
+    return yaml
+
+
+def _reset(kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def _launched(kernels, path, label):
+    launches = {k.name: k.launches for k in kernels}
+    missing = [k.name for k in path if launches[k.name] == 0]
+    print(f"{label}: launches {launches}")
+    if missing:
+        raise AssertionError(f"{label}: kernels not launched: {missing}")
     return launches
+
+
+def _wrap(owner, name, make):
+    """``owner.name`` replaced by ``make(original)`` inside a with block."""
+    from unittest import mock
+
+    return mock.patch.object(owner, name, make(getattr(owner, name)))
+
+
+def video_phase(torch, dev, path):
+    """A color clip through the CLI with -e and a two-seed ensemble: the
+    clip decode, the exposure solve on the card, the ensemble's union and
+    every kernel of the default reconstruction."""
+    from meshrecon_torch import cli
+    from meshrecon_torch.io.synthetic import synthetic_frames
+    from meshrecon_torch.io.tracks import load_tracks
+    from meshrecon_torch.kernels import all_kernels
+    from meshrecon_torch.pipeline import config as config_mod
+    from meshrecon_torch.pipeline import exposure
+    from meshrecon_torch.utils.profiling import StageTimer
+
+    t_phase = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    track = load_tracks(TRACK)
+    # three surface-attached textures as B, G, R (a full-rank solve), each
+    # times its own per-frame gain 1 + 0.2 sin(f + 2c)
+    f_idx = torch.arange(track.frame_count, device=dev,
+                         dtype=torch.float64)[:, None]
+    gain = 1 + 0.2 * torch.sin(f_idx + 2 * torch.arange(3, device=dev))
+    planes = torch.stack([
+        (synthetic_frames(track, W, H, "sphere", seed=seed, device=dev)
+         * gain[:, c, None, None]).clamp(1, 254)
+        for c, seed in enumerate((3, 4, 5))], dim=-1).to(torch.uint8)
+    _write_clip(OUT_DIR / "koule_color.avi", planes.cpu().numpy())
+    yaml = _scene_yaml("koule_color.avi", "koule_color.yaml")
+    gain = gain.cpu().numpy()
+    print(f"video: wrote {W}x{H}, {track.frame_count} frames, MJPG "
+          f"({time.perf_counter() - t_phase:.2f} s)")
+
+    decode_s, solves = [], []
+
+    def timed_decode(orig):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            decode_s.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def kept_solve(orig):
+        def call(sampled, valid, device):
+            out = orig(sampled, valid, device)
+            solves.append((sampled, valid, out))
+            return out
+        return call
+
+    kernels = all_kernels()
+    obj = OUT_DIR / "chip_smoke_video.obj"
+    timer = StageTimer()
+    _reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _wrap(config_mod, "_decode_clip", timed_decode), \
+            _wrap(exposure, "_solve_exposure_device", kept_solve):
+        rc = cli.main([str(yaml), "-e", "--ensemble-seeds", VIDEO_SEEDS,
+                       "-o", str(obj), "--device", "cuda", "-v"],
+                      timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"video: cli.main rc {rc}")
+    _launched(kernels, path, "video")
+    sampled, valid, (e, _, solve) = solves[0]
+    print(f"video: decode {decode_s[0]:.3f} s; exposure solve on "
+          f"{solve['device']}, {solve['rounds']} rounds, mean residual "
+          f"{solve['err']:.4f}, {solve['ms']:.3f} ms")
+    if not solve["device"].startswith("cuda"):
+        raise AssertionError(f"video: exposure solved on {solve['device']}")
+    # the card's solve against the plain CPU one on the same samples, at
+    # tests/test_torch_exposure.py's full-rank bound (1e-4 of the largest
+    # gain, the same round count)
+    e_cpu, _, solve_cpu = exposure._solve_exposure_device(sampled, valid,
+                                                          "cpu")
+    gain_err = float(np.abs(e - e_cpu).max() / np.abs(e_cpu).max())
+    print(f"video: exposure on the CPU, same samples: {solve_cpu['rounds']} "
+          f"rounds, mean residual {solve_cpu['err']:.4f}; largest gain "
+          f"difference {gain_err:.3e} of the largest gain (bound 1e-4); "
+          f"singular values of frame 0's samples "
+          + ", ".join(f"{v:.1f}" for v in np.linalg.svd(
+              np.where(valid[0, :, None], sampled[0], 0.0),
+              compute_uv=False)))
+    if solve_cpu["rounds"] != solve["rounds"] or gain_err > 1e-4:
+        raise AssertionError("video: the card's exposure solve disagrees "
+                             "with the CPU's")
+    total = e.sum(0) * gain.mean(1)
+    per_c = [float(np.std(e[c] * gain[:, c]) / abs(np.mean(e[c] * gain[:, c])))
+             for c in range(3)]
+    print(f"video: spread (std / mean over frames) of exposure.sum(0) x "
+          f"mean gain {float(total.std() / total.mean()):.4f}; of "
+          f"exposure[c] x gain[c] (B, G, R) "
+          + ", ".join(f"{v:.4f}" for v in per_c))
+    print(f"video: cli.main wall {wall:.2f} s, ensemble seeds {VIDEO_SEEDS}; "
+          "stages (card-synchronized wall seconds):")
+    for line in timer.report().splitlines():
+        print(f"  {line}")
+    _check_sphere_mesh(obj, "video", E2E_BOUNDS["default"])
+    print(f"phase video: {time.perf_counter() - t_phase:.1f} s")
+
+
+def scenes_phase(torch, dev, path):
+    """Two YAMLs of one gray clip with -V -n 1 --depth-mode flow: the lazy
+    decode, the per-camera path's kernels and dumps, and the first scene's
+    frames leaving the card."""
+    import contextlib
+    import io
+    import os
+    import re
+
+    from meshrecon_torch import cli
+    from meshrecon_torch.io.synthetic import synthetic_frames
+    from meshrecon_torch.io.tracks import load_tracks
+    from meshrecon_torch.kernels import all_kernels
+    from meshrecon_torch.pipeline.config import Config
+    from meshrecon_torch.utils.profiling import StageTimer
+
+    t_phase = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    track = load_tracks(TRACK)
+    gray = synthetic_frames(track, W, H, "sphere", seed=3, device=dev)
+    gray = gray.clamp(0, 255).to(torch.uint8)[..., None].expand(
+        -1, -1, -1, 3).contiguous()
+    _write_clip(OUT_DIR / "koule_gray.avi", gray.cpu().numpy())
+    yamls = [_scene_yaml("koule_gray.avi", f"koule_gray{i}.yaml")
+             for i in range(2)]
+    dumps = (OUT_DIR / "dumps_V").resolve()
+    if dumps.exists():
+        for f in dumps.iterdir():
+            f.unlink()
+    dumps.mkdir(parents=True, exist_ok=True)
+    clip_bytes = track.frame_count * H * W * 4
+
+    readings = []
+
+    def measured_release(orig):
+        def call(self):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            orig(self)
+            readings.append((before, torch.cuda.memory_allocated()))
+        return call
+
+    class _Tee(io.TextIOBase):
+        def __init__(self, out):
+            self.out, self.buf = out, io.StringIO()
+
+        def write(self, text):
+            self.buf.write(text)
+            return self.out.write(text)
+
+        def flush(self):
+            self.out.flush()
+
+    kernels = all_kernels()
+    timer = StageTimer()
+    tee = _Tee(sys.stdout)
+    argv = [*(str(y.resolve()) for y in yamls), "-V", "-n", "1",
+            "--depth-mode", "flow", "-o", str(dumps / "scene{}.obj"),
+            "--device", "cuda"]
+    _reset(kernels)
+    cwd = os.getcwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(dumps)
+        with _wrap(Config, "release_frames", measured_release), \
+                contextlib.redirect_stdout(tee):
+            rc = cli.main(argv, timer=timer)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"scenes -V: cli.main rc {rc}")
+    _launched(kernels, path, "scenes -V")
+    # -n 1 flow from the alpha shape is the crude first pass: its surface
+    # error is printed, not bounded; the meshes must be written and finite
+    for i in range(2):
+        _check_sphere_mesh(dumps / f"scene{i}.obj", f"scenes -V scene {i}")
+
+    # the dumps the chosen bundles imply: per main camera its frame and
+    # depth, per side four images; the scenes write the same names
+    expected = set()
+    for fa, sides in re.findall(r"main camera (\d+), side cameras ([\d, ]+),",
+                                tee.buf.getvalue()):
+        expected |= {f"frame{fa}.png", f"depth-frame{fa}.png"}
+        for fb in re.findall(r"\d+", sides):
+            expected |= {f"project-frame{fa}from{fb}.png",
+                         f"flow-frame{fa}from{fb}.png",
+                         f"frame{fa}from{fb}-remapped.png",
+                         f"frame{fa}from{fb}-remap-error.png"}
+    pngs = {f.name for f in dumps.glob("*.png")}
+    objs = {f.name for f in dumps.glob("*.obj")}
+    print(f"scenes -V: {len(pngs)} PNG dumps (the bundles imply "
+          f"{len(expected)}), OBJ files {sorted(objs)}")
+    if not expected or pngs != expected:
+        raise AssertionError(f"scenes -V: dumps {sorted(pngs ^ expected)} "
+                             "differ from the bundles'")
+    if not {"recon_orig.obj", "purepoints.obj", "filteredpoints.obj"} <= objs:
+        raise AssertionError(f"scenes -V: OBJ dumps missing: {objs}")
+
+    print("scenes -V: torch.cuda.memory_allocated around each scene's "
+          "release_frames (before, after; bytes): "
+          + "; ".join(f"{b}, {a}" for b, a in readings)
+          + f"; the clip holds {clip_bytes}")
+    if len(readings) != 2 or readings[0][0] - readings[0][1] < clip_bytes:
+        raise AssertionError("scenes -V: the first scene's frames stayed "
+                             "on the card after release_frames")
+    print(f"scenes -V: cli.main wall {wall:.2f} s; stages "
+          "(card-synchronized wall seconds):")
+    for line in timer.report().splitlines():
+        print(f"  {line}")
+    print(f"phase scenes -V: {time.perf_counter() - t_phase:.1f} s")
+
+
+def drivers_phase(torch, dev, flow_path, raster_path):
+    """The standalone flow and raster drivers in a scratch directory; the
+    raster driver's depth against the NumPy reference rasterizer."""
+    import os
+
+    from meshrecon_torch.flow import driver as flow_driver
+    from meshrecon_torch.kernels import all_kernels
+    from meshrecon_torch.raster import driver as raster_driver
+    from meshrecon_torch.raster.reference import render_depth_reference
+
+    t_phase = time.perf_counter()
+    work = (OUT_DIR / "drivers").resolve()
+    work.mkdir(parents=True, exist_ok=True)
+    kernels = all_kernels()
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        _reset(kernels)
+        t0 = time.perf_counter()
+        if flow_driver.main([]) != 0:
+            raise AssertionError("flow driver: nonzero exit")
+        torch.cuda.synchronize()
+        print(f"flow driver: {time.perf_counter() - t0:.2f} s")
+        _launched(kernels, flow_path, "flow driver")
+        _reset(kernels)
+        t0 = time.perf_counter()
+        if raster_driver.main([]) != 0:
+            raise AssertionError("raster driver: nonzero exit")
+        torch.cuda.synchronize()
+        print(f"raster driver: {time.perf_counter() - t0:.2f} s")
+        _launched(kernels, raster_path, "raster driver")
+        for name in ("flow.png", "remap.png", "diff.png",
+                     "test/out-depth.png", "test/out-projected.png"):
+            if not (work / name).stat().st_size:
+                raise AssertionError(f"drivers: {name} is empty")
+    finally:
+        os.chdir(cwd)
+
+    depth = raster_driver.render(dev)[0].cpu().numpy()
+    t0 = time.perf_counter()
+    ref = render_depth_reference(raster_driver.GLX_MVP,
+                                 raster_driver.golden_soup(),
+                                 raster_driver.HEIGHT, raster_driver.WIDTH)
+    cover, cover_ref = depth < 1.0, ref < 1.0
+    disagree = float(np.mean(cover != cover_ref))
+    both = cover & cover_ref
+    err = np.abs(depth[both] - ref[both])
+    share = float(np.mean(err < RASTER_REF_BOUNDS[2]))
+    ref_s = time.perf_counter() - t0
+    print(f"raster driver vs render_depth_reference ({ref_s:.2f} s): "
+          f"coverage disagreement {disagree:.6f} (bound "
+          f"{RASTER_REF_BOUNDS[0]}), share of |dz| < {RASTER_REF_BOUNDS[2]} "
+          f"{share:.6f} (bound {RASTER_REF_BOUNDS[1]}), max |dz| "
+          f"{float(err.max()):.3e}, covered {float(cover.mean()):.4f}")
+    if not (cover.mean() > 0.05 and disagree < RASTER_REF_BOUNDS[0]
+            and share > RASTER_REF_BOUNDS[1]):
+        raise AssertionError("raster driver disagrees with the reference")
+    print(f"phase drivers: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -1650,6 +2002,9 @@ def main(argv=None) -> int:
     rewarp = run_e2e(torch, dev, "rewarp", ["--variance-mode", "rewarp"],
                      (*render, K2, K3, K3C, K4, K3B))
     run_e2e(torch, dev, "farneback", ["-f"], (*render, K2, K3, K3C, K3B))
+    video_phase(torch, dev, (*render, K2, K3, K3C, K4))
+    scenes_phase(torch, dev, (*render, K2, K3, K3B, K4))
+    drivers_phase(torch, dev, (K3, K3B), render)
 
     # each kernel's launches on the path it serves
     path_launches = {k.name: default[k.name]

@@ -1,8 +1,12 @@
 """Command line entry point of the port, compatible with the reference's
 ``recon`` (configuration.cpp:109-123; see pipeline/config.py for the flags).
 
-    python -m meshrecon_torch.cli tracks/koule-tr.yaml --synthetic sphere \\
-        -o out.obj [--device cuda|cpu] [-s 8] [-n 2] [-v]
+    python -m meshrecon_torch.cli SCENE.yaml [SCENE2.yaml ...] -o out.obj \\
+        [--device cuda|cpu] [-e] [--ensemble-seeds 3,13] [-V] [-s 8] [-n 2]
+    python -m meshrecon_torch.cli tracks/koule-tr.yaml --synthetic sphere
+
+Each YAML's clip is decoded (``--synthetic`` renders fixture frames
+instead); several YAMLs reconstruct one after another.
 """
 
 from __future__ import annotations
@@ -49,18 +53,27 @@ def profile_trace(log_dir: str, device: str):
 
 
 def main(argv=None, timer=None) -> int:
-    """Run one reconstruction; ``timer`` (a StageTimer) collects the stage
-    times when given."""
-    from meshrecon_torch.pipeline.config import config_from_args
-    from meshrecon_torch.pipeline.reconstruct import reconstruct
+    """Run the reconstruction of every input YAML; ``timer`` (a StageTimer)
+    collects the stage times when given."""
+    from meshrecon_torch.pipeline.config import configs_from_args
+    from meshrecon_torch.pipeline.reconstruct import (reconstruct,
+                                                      reconstruct_scenes)
 
-    config = config_from_args(argv)
-    config.log(2, " Loaded configuration and synthetic frames")
-    if config.profile_dir:
-        with profile_trace(config.profile_dir, config.device):
-            reconstruct(config, timer=timer)
+    configs = configs_from_args(argv)
+    first = configs[0]
+    first.log(2, " Loaded configuration and video clip")
+
+    def run():
+        if len(configs) == 1:
+            reconstruct(first, timer=timer)
+        else:
+            reconstruct_scenes(configs, timer=timer)
+
+    if first.profile_dir:
+        with profile_trace(first.profile_dir, first.device):
+            run()
     else:
-        reconstruct(config, timer=timer)
+        run()
     return 0
 
 

@@ -26,11 +26,15 @@ def farneback_params(height: int, width: int) -> dict:
                 winsize=int(max((height + width) // 100, 5)))
 
 
-def calculate_flow(prev, next_, use_farneback: bool = False):
+def calculate_flow(prev, next_, use_farneback: bool = False,
+                   levels: int = 2, warps: int = 1, iters: int | None = None,
+                   solver: str = "cheb", fine_warps: int = 1):
     """Dense flow + per-pixel variance; returns (..., H, W, 4) float32.
 
     prev: the real frame, broadcasting against next_ (..., H, W), the
     reprojected prediction. Convention: ``next(x + flow(x)) ~= prev(x)``.
+    The variational flow's knobs default to the pipeline's 2-level
+    single-warp pyramid (the flow update's); Farneback ignores them.
     """
     prev = prev.to(torch.float32)
     next_ = next_.to(torch.float32)
@@ -40,8 +44,9 @@ def calculate_flow(prev, next_, use_farneback: bool = False):
         flow = farneback_flow(prev, next_,
                               **farneback_params(*prev.shape[-2:]))
     else:
-        # the pipeline's 2-level single-warp pyramid (the fused path's)
-        flow = variational_flow(prev, next_, levels=2, warps=1)
+        flow = variational_flow(prev, next_, levels=levels, warps=warps,
+                                iters=iters, solver=solver,
+                                fine_warps=fine_warps)
     shape = flow.shape[:-1]
     rewarped = tile_warp_flow_batched(
         next_.expand(shape).contiguous(), flow[..., 0].contiguous(),

@@ -1,5 +1,5 @@
-"""Camera-center extraction on the host (port of the numpy helper of
-meshrecon/geometry/camera.py).
+"""Camera geometry (port of meshrecon/geometry/camera.py): the camera
+center on the host, and projection of homogeneous points in float32 torch.
 
 A camera is one 4x4 projection matrix mapping homogeneous world points to
 clip space; NDC = clip.xyz / clip.w, image row 0 at NDC y = +1.
@@ -8,6 +8,9 @@ clip space; NDC = clip.xyz / clip.w, image row 0 at NDC y = +1.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from meshrecon_torch.pipeline.config import resolve_device
 
 
 def np_extract_camera_center(camera: np.ndarray) -> np.ndarray:
@@ -19,3 +22,34 @@ def np_extract_camera_center(camera: np.ndarray) -> np.ndarray:
     if center[3] < 0:
         center = -center
     return center.astype(np.float32)
+
+
+def dehomogenize(points):
+    """(..., 4) homogeneous -> (..., 3) Cartesian (util.cpp:16-29)."""
+    return points[..., :3] / points[..., 3:4]
+
+
+def camera_to_screen(points3, lens_distortion, aspect):
+    """The exporter's radial lens distortion on (..., 3) NDC points: the
+    radius from (x, y * aspect) / 2, the whole point scaled by
+    ``1 + r^2 (k1 + r^2 k2)`` (configuration.cpp:250-258)."""
+    k1, k2 = float(lens_distortion[0]), float(lens_distortion[1])
+    rad2 = (points3[..., 0] ** 2 + (points3[..., 1] * aspect) ** 2) / 4.0
+    k = 1.0 + rad2 * (k1 + rad2 * k2)
+    return points3 * k[..., None]
+
+
+def project_points(camera, points4, lens_distortion=None, aspect=1.0,
+                   device="cuda"):
+    """Project (N, 4) homogeneous world points by a (4, 4) camera, then
+    distort when ``lens_distortion`` is given: (N, 3) float32 NDC points on
+    ``device`` (configuration.cpp:262-267)."""
+    device = resolve_device(device)
+    cam = torch.as_tensor(np.asarray(camera), dtype=torch.float32,
+                          device=device)
+    pts = torch.as_tensor(np.asarray(points4), dtype=torch.float32,
+                          device=device)
+    cart = dehomogenize(pts @ cam.T)
+    if lens_distortion is not None:
+        cart = camera_to_screen(cart, lens_distortion, aspect)
+    return cart

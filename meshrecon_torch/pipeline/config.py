@@ -1,25 +1,30 @@
-"""Runtime configuration: the command line, scene ingestion, frames.
+"""Runtime configuration: the command line, scene ingestion, clip decode.
 
-Port of meshrecon/pipeline/config.py for one scene. The reference CLI
+Port of meshrecon/pipeline/config.py. The reference CLI
 (configuration.cpp:37-123) and the JAX package's algorithmic extensions
 keep their names and defaults; ``--device`` (default ``cuda``) picks the
-torch device that holds the frames and runs every dense stage. The TPU
+torch device that holds the frames and runs every dense stage. The clip
+decodes on the host with cv2 (frame skipping, ``INTER_AREA`` resize), turns
+gray by the Rec.601 weights or by ``-e``'s exposure gains, and moves to the
+device. Several input YAMLs make one Config each, decoded lazily. The TPU
 layout knobs of the JAX package (``--raster-tile-h/w``,
 ``--hs-fused-min-px``, ``--warp-narrow``, ``--warp-narrow-cols``,
-``--warp-guard-cols``) have no counterpart here and are not accepted. A flag
-whose path is not ported yet raises NotImplementedError naming its ROADMAP
-item; no flag is ignored. The flow options that the JAX package sets as
-module globals (``apply_kernel_knobs``: ``--variance-mode``,
-``--variance-taps``, ``--shadow-sample``) are fields of :class:`Config`
-here, handed to the updates as arguments.
+``--warp-guard-cols``) have no counterpart here and are not accepted;
+``--mesh-devices`` and ``--scene-devices`` above 1 raise
+NotImplementedError (ROADMAP Queue A, A12); no flag is ignored. The flow
+options that the JAX package sets as module globals
+(``apply_kernel_knobs``: ``--variance-mode``, ``--variance-taps``,
+``--shadow-sample``) are fields of :class:`Config` here, handed to the
+updates as arguments.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os.path
 import sys
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -30,7 +35,9 @@ from meshrecon_torch.io.tracks import TrackFile, load_tracks
 @dataclasses.dataclass
 class Config:
     track: TrackFile
-    frames: torch.Tensor  # (F, H, W) float32 grayscale 0..255 on ``device``
+    # (F, H, W) float32 grayscale 0..255 on ``device``; None until a lazy
+    # scene's ``ensure_frames``
+    frames: Optional[torch.Tensor]
     device: str = "cuda"
     iteration_count: int = 2
     verbosity: int = 0
@@ -72,13 +79,41 @@ class Config:
     checkpoint_dir: Optional[str] = None
     profile_dir: Optional[str] = None
     resume: bool = False
+    # refine the cloud under each of these camera-draw seeds and mesh the
+    # union once; empty: one draw under ``seed``
+    ensemble_seeds: tuple = ()
+    exposure: Optional[np.ndarray] = None  # (C, F) gains of ``-e``
+    # lazy decode of a multi-scene batch: ``frames`` stays None and
+    # ``frames_loader`` decodes on first use, so the device holds one clip
+    # at a time; ``shape_hint`` (F, H, W) answers the sizes until then
+    frames_loader: Optional[Callable] = None
+    shape_hint: Optional[tuple] = None
+
+    def ensure_frames(self) -> None:
+        """Decode a lazy scene's clip onto ``device`` (a no-op once
+        decoded)."""
+        if self.frames is None:
+            loaded = self.frames_loader()
+            if isinstance(loaded, tuple):
+                loaded, self.exposure = loaded
+            self.frames = torch.from_numpy(
+                np.asarray(loaded, np.float32)).to(self.device)
+
+    def release_frames(self) -> None:
+        """Drop a lazy scene's frames from the device (only the frames)."""
+        if self.frames_loader is not None:
+            self.frames = None
 
     @property
     def width(self) -> int:
+        if self.frames is None:
+            return int(self.shape_hint[2])
         return int(self.frames.shape[2])
 
     @property
     def height(self) -> int:
+        if self.frames is None:
+            return int(self.shape_hint[1])
         return int(self.frames.shape[1])
 
     @property
@@ -89,6 +124,7 @@ class Config:
         return self.track.cameras[i]
 
     def frame(self, i: int) -> torch.Tensor:
+        self.ensure_frames()
         return self.frames[i]
 
     def reconstructed_points(self) -> np.ndarray:
@@ -99,16 +135,59 @@ class Config:
             print(msg, flush=True)
 
 
+def _decode_clip(track: TrackFile, skip_frames: int, width: int,
+                 height: int) -> list:
+    """The clip's tracked frames as (H, W, 3) uint8 BGR arrays on the host:
+    every ``skip_frames``-th frame, resized by ``INTER_AREA`` where its
+    size differs (configuration.cpp:227-238). A clip that cannot be opened
+    raises FileNotFoundError, one with too few frames RuntimeError."""
+    import cv2
+
+    clip = cv2.VideoCapture(track.clip_path)
+    if not clip.isOpened():
+        raise FileNotFoundError(f"Cannot read clip {track.clip_path}")
+    frames = []
+    fi = 0
+    tracked = track.frame_count
+    while len(frames) < tracked:
+        ok, frame = clip.read()
+        if not ok:
+            break
+        if fi % skip_frames == 0:
+            if frame.shape[0] != height or frame.shape[1] != width:
+                frame = cv2.resize(frame, (width, height),
+                                   interpolation=cv2.INTER_AREA)
+            frames.append(frame)
+        fi += 1
+    clip.release()
+    if len(frames) < tracked:
+        raise RuntimeError(f"clip {track.clip_path} has {len(frames)} usable "
+                           f"frames, need {tracked}")
+    return frames
+
+
+def gray_rec601(bgr) -> np.ndarray:
+    """BGR frames to float32 gray by the Rec.601 weights cv::cvtColor
+    applies (configuration.cpp:243-245), in float32 as the JAX package."""
+    return np.stack([0.114 * f[..., 0].astype(np.float32)
+                     + 0.587 * f[..., 1].astype(np.float32)
+                     + 0.299 * f[..., 2].astype(np.float32) for f in bgr])
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m meshrecon_torch.cli",
         description="Reconstructs dense geometry from given YAML scene "
         "calibration and video (PyTorch / CUDA)",
     )
-    p.add_argument("input_pos", nargs="*", help="input YAML scene file")
+    p.add_argument("input_pos", nargs="*",
+                   help="input YAML scene file(s); several run one after "
+                        "another, each clip decoded when its scene starts")
     p.add_argument("-i", "--input", dest="input")
     p.add_argument("-m", "--initial-mesh", dest="initial_mesh")
-    p.add_argument("-o", "--output", default="output.obj")
+    # None tells the unset default from an explicit -o output.obj (the
+    # names of several scenes' meshes)
+    p.add_argument("-o", "--output", default=None)
     p.add_argument("-c", "--camera-threshold", type=float, default=10.0)
     p.add_argument("-e", "--estimate-exposure", action="store_true")
     p.add_argument("-n", "--iterations", type=int, default=2)
@@ -166,22 +245,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _unported(args) -> list[str]:
-    """The flags given whose path the port does not have yet, each with
-    its ROADMAP item."""
-    missing = []
-    if args.estimate_exposure:
-        missing.append("-e/--estimate-exposure (ROADMAP Queue A, A13)")
-    if not args.synthetic:
-        missing.append("video decode without --synthetic (ROADMAP Queue A, "
-                       "A13)")
+    """The flags given whose path the port does not have, each with its
+    ROADMAP item."""
     if args.mesh_devices > 1 or args.scene_devices > 1:
-        missing.append("--mesh-devices/--scene-devices > 1 (ROADMAP Queue "
-                       "A, A12)")
-    if args.ensemble_seeds or args.preset:
-        missing.append("--ensemble-seeds/--preset (ROADMAP Queue A, A14)")
-    if args.hyper_verbose:
-        missing.append("-V/--hyper-verbose (ROADMAP Queue A, A14)")
-    return missing
+        return ["--mesh-devices/--scene-devices > 1 (ROADMAP Queue A, A12)"]
+    return []
 
 
 def resolve_device(name) -> torch.device:
@@ -197,27 +265,46 @@ def resolve_device(name) -> torch.device:
 
 
 def configs_from_args(argv=None) -> list:
-    """One Config per input YAML (the port takes exactly one)."""
+    """One Config per input YAML. With several, each scene's mesh is named
+    by -o: a ``{}`` placeholder takes the scene index, any other -o gets
+    the index before its extension (``out.obj`` -> ``out0.obj``), and with
+    no -o the mesh is ``<input stem>.obj`` beside its input; checkpoints go
+    to ``scene<i>`` below ``--checkpoint-dir``, and each clip decodes when
+    its scene starts."""
     args = build_parser().parse_args(argv)
     in_files = ([args.input] if args.input else []) + list(args.input_pos)
     if not in_files:
         print("No configuration YAML file given, exiting.", file=sys.stderr)
         raise SystemExit(1)
     missing = _unported(args)
-    if len(in_files) > 1:
-        missing.append("several input YAMLs (multi-scene; ROADMAP Queue A, "
-                       "A14)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
-    return [_config_for_file(args, in_files[0], args.output)]
+    configs = []
+    for idx, in_file in enumerate(in_files):
+        if len(in_files) == 1:
+            out = args.output or "output.obj"
+        elif args.output is None:
+            out = os.path.splitext(in_file)[0] + ".obj"
+        elif "{}" in args.output:
+            out = args.output.format(idx)
+        else:
+            stem, ext = os.path.splitext(args.output)
+            out = f"{stem}{idx}{ext or '.obj'}"
+        cfg = _config_for_file(args, in_file, out, lazy=len(in_files) > 1)
+        if len(in_files) > 1 and cfg.checkpoint_dir:
+            cfg.checkpoint_dir = os.path.join(cfg.checkpoint_dir,
+                                              f"scene{idx}")
+        configs.append(cfg)
+    return configs
 
 
 def config_from_args(argv=None) -> Config:
-    """Single-scene form: exactly one input YAML (the reference CLI)."""
+    """Single-scene form: the first input YAML's Config."""
     return configs_from_args(argv)[0]
 
 
-def _config_for_file(args, in_file: str, out_file: str) -> Config:
+def _config_for_file(args, in_file: str, out_file: str,
+                     lazy: bool = False) -> Config:
     from meshrecon_torch.io.synthetic import synthetic_frames
 
     device = resolve_device(args.device)
@@ -230,14 +317,52 @@ def _config_for_file(args, in_file: str, out_file: str) -> Config:
     if track.width % max(scale, 1) or track.height % max(scale, 1):
         print("Warning: downscale factor does not divide the frame size "
               "(configuration.cpp:149-151 warns here too)", file=sys.stderr)
-    frames = synthetic_frames(track, width, height, mode=args.synthetic,
-                              seed=args.seed, device=device)
+
+    frames = exposure = loader = shape_hint = None
+    if args.synthetic:
+        # -e applies to a decoded clip only, as in the JAX package
+        frames = synthetic_frames(track, width, height, mode=args.synthetic,
+                                  seed=args.seed, device=device)
+    else:
+        def decode():
+            bgr = _decode_clip(track, skip, width, height)
+            if args.estimate_exposure:
+                from meshrecon_torch.pipeline.exposure import (
+                    estimate_exposure)
+
+                return estimate_exposure(
+                    bgr, track.cameras, track.bundles, track.bundles_enabled,
+                    track.distortion, track.center_x / scale,
+                    track.center_y / scale, width, height,
+                    verbose=bool(args.verbose or args.hyper_verbose),
+                    dump_tab=args.hyper_verbose, device=device)
+            return gray_rec601(bgr)
+
+        if lazy:
+            loader = decode
+            shape_hint = (track.frame_count, height, width)
+        else:
+            gray = decode()
+            if isinstance(gray, tuple):
+                gray, exposure = gray
+            frames = torch.from_numpy(np.asarray(gray, np.float32)).to(device)
+
+    verbosity = 99 if args.hyper_verbose else (2 if args.verbose else 0)
+    if args.preset == "quality":
+        # 3 consensus rounds and a 3-draw ensemble; explicit flags win
+        if args.consensus_rounds == 0:
+            args.consensus_rounds = 3
+        if not args.ensemble_seeds:
+            args.ensemble_seeds = (f"{args.seed},{args.seed + 10},"
+                                   f"{args.seed + 20}")
+    seeds = tuple(int(s) for s in args.ensemble_seeds.split(",")
+                  if s.strip()) if args.ensemble_seeds else ()
     return Config(
         track=track,
         frames=frames,
         device=str(device),
         iteration_count=args.iterations,
-        verbosity=2 if args.verbose else 0,
+        verbosity=verbosity,
         camera_threshold=args.camera_threshold,
         out_file_name=out_file,
         in_mesh_file=args.initial_mesh,
@@ -271,4 +396,8 @@ def _config_for_file(args, in_file: str, out_file: str) -> Config:
         checkpoint_dir=args.checkpoint_dir,
         profile_dir=args.profile,
         resume=args.resume,
+        ensemble_seeds=seeds,
+        exposure=exposure,
+        frames_loader=loader,
+        shape_hint=shape_hint,
     )

@@ -1,21 +1,34 @@
 """The outer refinement loop, the functional equivalent of recon.cpp:12-141.
 
-Port of meshrecon/pipeline/reconstruct.py for one scene on one device.
-Per iteration: tessellate -> load the mesh -> choose camera bundles -> for
-every main camera render its depth, reproject the side frames, estimate
-dense depth (plane sweep on the hybrid default's first iteration, flow +
-Gauss-Newton after), estimate normals -> accumulate points -> filter. The
-dense stages run in batches of B=4 main cameras with side counts padded to
-a bucket (4 or 8), as in the reference package; the JAX package's compile
+Port of meshrecon/pipeline/reconstruct.py on one device. Per iteration:
+tessellate -> load the mesh -> choose camera bundles -> for every main
+camera render its depth, reproject the side frames, estimate dense depth
+(plane sweep on the hybrid default's first iteration, flow + Gauss-Newton
+after), estimate normals -> accumulate points -> filter. The dense stages
+run in batches of B=4 main cameras with side counts padded to a bucket (4
+or 8), as in the reference package; at verbosity >= 3 (``-V``) each main
+camera of a flow iteration takes the stage-by-stage path instead and dumps
+its images. A seed ensemble refines the cloud once per seed and meshes the
+union; several scenes run one after another. The JAX package's compile
 workarounds (prewarming, cached jitted steps) have no counterpart here.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os.path
+
 import numpy as np
 import torch
 
+from meshrecon_torch import BACKGROUND_DEPTH
+from meshrecon_torch.depth.normals import estimate_normals
+from meshrecon_torch.depth.triangulate import triangulate_pixels
+from meshrecon_torch.flow.api import calculate_flow
+from meshrecon_torch.flow.pyramid import compare
+from meshrecon_torch.flow.tile_warp import tile_warp_flow_batched
 from meshrecon_torch.geometry.camera import np_extract_camera_center
+from meshrecon_torch.io.images import save_image
 from meshrecon_torch.io.obj import Mesh, save_mesh
 from meshrecon_torch.meshing.decimate import decimate_vertex_clustering
 from meshrecon_torch.pipeline.checkpoint import (load_checkpoint,
@@ -23,6 +36,7 @@ from meshrecon_torch.pipeline.checkpoint import (load_checkpoint,
 from meshrecon_torch.pipeline.fused import FusedMainUpdate, FusedSweepUpdate
 from meshrecon_torch.pipeline.heuristic import Heuristic
 from meshrecon_torch.points.filter import filter_points
+from meshrecon_torch.raster.fragment import mix_background
 from meshrecon_torch.raster.rasterizer import Renderer
 from meshrecon_torch.utils.profiling import StageTimer
 
@@ -57,13 +71,19 @@ def _effective_depth_mode(config, iteration: int) -> str:
     return mode
 
 
+def _flow_knobs(config) -> dict:
+    """The configuration's variational-flow knobs (0 = the pipeline
+    default: 2 levels, 1 warp a level, the solver's default sweeps)."""
+    return dict(levels=config.flow_levels or 2, warps=config.flow_warps or 1,
+                iters=config.flow_iters or None,
+                fine_warps=config.flow_fine_warps or 1)
+
+
 def main_update(config) -> FusedMainUpdate:
-    """The flow update with the configuration's flow knobs (0 = default)."""
+    """The flow update with the configuration's flow knobs."""
     return FusedMainUpdate(
-        config.height, config.width, levels=config.flow_levels or 2,
-        warps=config.flow_warps or 1, iters=config.flow_iters or None,
+        config.height, config.width, **_flow_knobs(config),
         sampling=config.sampling, flow_solver=config.flow_solver,
-        fine_warps=config.flow_fine_warps or 1,
         use_farneback=config.use_farneback, variance=config.variance_mode,
         variance_taps=config.variance_taps,
         shadow_sample=config.shadow_sample)
@@ -173,27 +193,119 @@ def _process_main_fused(config, renderer, fa: int, sides, timer,
     return _results(out, 1)[0]
 
 
+def _process_main_unfused(config, renderer, fa: int, sides, timer):
+    """One main camera of a flow iteration stage by stage (the -V path),
+    its image dumps written to the working directory (recon.cpp:65-119):
+    the main depth; per side the projection against the pristine depth,
+    the background mix (which masks the depth progressively, as the
+    reference mutates it, util.cpp:366-387) and calculate_flow with the
+    flow update's knobs and solver; then the triangulation (exact
+    sampling) and the normals."""
+    npix = config.height * config.width
+    cam_main = config.camera(fa)
+    original = config.frame(fa).to(torch.float32)
+    with timer.stage("render.depth", npix) as done:
+        depth0 = done(renderer.depth(cam_main))
+    depth = depth0
+    save_image(original, f"frame{fa}.png")
+    save_image(depth, f"depth-frame{fa}.png", normalize=True)
+
+    flows, side_cams = [], []
+    for fb in sides:
+        with timer.stage("render.projected", npix) as done:
+            inten, mask = renderer.projected(
+                cam_main, config.frame(fb), config.camera(fb),
+                depth_main=depth0, shadow_sample=config.shadow_sample)
+            mixed, depth = mix_background(inten, mask, original, depth)
+            done(mixed)
+        with timer.stage("flow", npix) as done:
+            flow = done(calculate_flow(original, mixed, config.use_farneback,
+                                       solver=config.flow_solver,
+                                       **_flow_knobs(config)))
+        save_image(torch.where(depth == BACKGROUND_DEPTH, 0.0, mixed),
+                   f"project-frame{fa}from{fb}.png")
+        save_image(flow[..., :3], f"flow-frame{fa}from{fb}.png",
+                   normalize=True)
+        remapped = tile_warp_flow_batched(
+            mixed[None], flow[None, ..., 0].contiguous(),
+            flow[None, ..., 1].contiguous(), taps=4)[0]
+        save_image(remapped, f"frame{fa}from{fb}-remapped.png")
+        save_image(compare(original, remapped),
+                   f"frame{fa}from{fb}-remap-error.png", normalize=True)
+        flows.append(flow)
+        side_cams.append(config.camera(fb))
+
+    k = len(flows)
+    if k == 0:
+        return np.zeros((0, 4), np.float32), np.zeros((0, 3), np.float32), 0
+    dev = torch.device(config.device)
+    h, w = config.height, config.width
+    kb = _k_bucket(config, k)
+    flows_t = torch.zeros((kb, h, w, 4), dtype=torch.float32, device=dev)
+    flows_t[:k] = torch.stack(flows)
+    cams = np.tile(np.eye(4, dtype=np.float32), (kb, 1, 1))
+    cams[:k] = np.stack(side_cams)
+    side_valid = np.zeros(kb, bool)
+    side_valid[:k] = True
+    with timer.stage("triangulate", npix) as done:
+        out = triangulate_pixels(
+            flows_t, torch.as_tensor(cam_main, device=dev),
+            torch.from_numpy(cams).to(dev), torch.from_numpy(side_valid).to(
+                dev), depth)
+        done(out["point4"])
+
+    c3 = _centers3(config, fa, sides)
+    cb = _bucket(len(c3))
+    centers = np.zeros((cb, 3), np.float32)
+    centers[: len(c3)] = c3
+    cvalid = np.zeros(cb, bool)
+    cvalid[: len(c3)] = True
+    with timer.stage("normals", npix) as done:
+        normals = done(estimate_normals(
+            out["point4"], out["valid"], out["pdf"],
+            torch.from_numpy(centers).to(dev),
+            torch.from_numpy(cvalid).to(dev), k))
+    valid = out["valid"].cpu().numpy()
+    pts = out["point4"].cpu().numpy()[valid]
+    nrm = normals.cpu().numpy()[valid]
+    return pts.astype(np.float32), nrm.astype(np.float32), int(valid.sum())
+
+
 def process_main_camera(config, renderer, fa: int, sides: list[int],
                         timer=None, depth_mode: str | None = None):
     """Dense update for one main camera: (points4, normals, count).
 
-    "flow" (and an unresolved "hybrid") takes the flow update,
-    "plane-sweep" the sweep update, each on a batch of one.
+    "flow" (and an unresolved "hybrid") takes the flow update, or at
+    verbosity >= 3 the stage-by-stage path with its dumps; "plane-sweep"
+    the sweep update; each update on a batch of one.
     """
     timer = timer or StageTimer(enabled=False)
     mode = depth_mode or config.depth_mode
     if mode == "hybrid":  # unresolved (direct caller): refinement semantics
         mode = "flow"
+    if mode == "flow" and config.verbosity >= 3:
+        return _process_main_unfused(config, renderer, fa, sides, timer)
     return _process_main_fused(config, renderer, fa, sides, timer, mode)
 
 
-def reconstruct(config, timer=None) -> Mesh:
-    """Full video -> mesh reconstruction (the main() flow of recon.cpp).
+def _seed_config(config, seed: int):
+    """``config`` for one draw of an ensemble: ``seed``, no ensemble, and
+    its own ``seed<s>`` checkpoint and profile subdirectories (a shared
+    checkpoint would let --resume load another draw's state)."""
+    ck = (os.path.join(config.checkpoint_dir, f"seed{seed}")
+          if config.checkpoint_dir else None)
+    pd = (os.path.join(config.profile_dir, f"seed{seed}")
+          if config.profile_dir else None)
+    return dataclasses.replace(config, seed=int(seed), ensemble_seeds=(),
+                               checkpoint_dir=ck, profile_dir=pd)
 
-    ``timer``: a StageTimer to fill (by default one that is enabled at
-    verbosity >= 2)."""
-    timer = timer or StageTimer(enabled=config.verbosity >= 2)
-    points, normals, hint = _refine_cloud(config, timer)
+
+def _points_obj(points, name: str) -> None:
+    """A point cloud as an OBJ of vertices only (the -V dumps)."""
+    save_mesh(Mesh(points, np.zeros((0, 3), np.int32)), name)
+
+
+def _finish(config, hint, points, normals, timer) -> Mesh:
     config.log(1, "Calculating final mesh...")
     with timer.stage("final_mesh"):
         mesh = hint.tessellate(points, normals, final=True)
@@ -203,14 +315,73 @@ def reconstruct(config, timer=None) -> Mesh:
     return mesh
 
 
+def reconstruct(config, timer=None) -> Mesh:
+    """Full video -> mesh reconstruction (the main() flow of recon.cpp).
+
+    ``timer``: a StageTimer to fill (by default one that is enabled at
+    verbosity >= 2). Several ``ensemble_seeds`` run
+    :func:`reconstruct_ensemble`; exactly one is the draw to use."""
+    timer = timer or StageTimer(enabled=config.verbosity >= 2)
+    seeds = tuple(config.ensemble_seeds)
+    if len(seeds) > 1:
+        return reconstruct_ensemble(config, timer=timer)
+    if len(seeds) == 1:
+        config = _seed_config(config, seeds[0])
+    points, normals, hint = _refine_cloud(config, timer)
+    if config.verbosity >= 3:
+        _points_obj(points, "filteredpoints.obj")
+    return _finish(config, hint, points, normals, timer)
+
+
+def reconstruct_ensemble(config, timer=None) -> Mesh:
+    """Refine the cloud under each seed of ``config.ensemble_seeds`` (one
+    independent camera draw each), filter the union and mesh it once. The
+    clip decodes once; the seeds' configurations share its tensor."""
+    timer = timer or StageTimer(enabled=config.verbosity >= 2)
+    config.ensure_frames()
+    pts_l, nrm_l, hints = [], [], []
+    for s in config.ensemble_seeds:
+        p, n, h = _refine_cloud(_seed_config(config, s), timer)
+        pts_l.append(p)
+        nrm_l.append(n)
+        hints.append(h)
+    hint = hints[0]
+    with timer.stage("filter_points"):
+        points, normals, _ = filter_points(
+            np.concatenate(pts_l), np.concatenate(nrm_l),
+            hint.filter_radius_sq(), device=config.device)
+    config.log(2, f" ensemble union: {len(points)} filtered points from "
+                  f"{len(hints)} seeds")
+    if config.verbosity >= 3:
+        _points_obj(points, "filteredpoints.obj")
+    return _finish(config, hint, points, normals, timer)
+
+
+def reconstruct_scenes(configs, timer=None) -> list:
+    """Reconstruct several scenes one after another; each lazy scene's
+    frames leave the device when it is done, so the device holds one clip
+    at a time. Returns the meshes in order."""
+    meshes = []
+    for cfg in configs:
+        meshes.append(reconstruct(cfg, timer=timer))
+        cfg.release_frames()
+    return meshes
+
+
 def _refine_cloud(config, timer):
     """The iterative dense-refinement loop (recon.cpp:12-139) up to, not
-    including, the final meshing; returns (points, normals, hint)."""
+    including, the final meshing; returns (points, normals, hint).
+
+    ``hint.point_provenance`` holds a code per returned point:
+    ``iteration * 1000 + main camera`` of the update that made it, -1 for
+    the sparse bundles and for every point of a resumed checkpoint."""
+    config.ensure_frames()
     hint = Heuristic(config)
     renderer = Renderer(config.width, config.height, device=config.device)
 
     points = np.asarray(config.reconstructed_points(), np.float32)
     normals = np.zeros((len(points), 3), np.float32)
+    prov = np.full(len(points), -1, np.int32)
     config.log(2, f" Loaded {len(points)} points")
 
     if config.resume and config.checkpoint_dir:
@@ -218,6 +389,7 @@ def _refine_cloud(config, timer):
         if state is not None:
             points, normals, hint.alpha_vals, hint.iteration, rng_state = state
             hint.rng.bit_generator.state = rng_state
+            prov = np.full(len(points), -1, np.int32)
             config.log(1, f"Resumed at iteration {hint.iteration}")
 
     while hint.not_happy(points):
@@ -225,6 +397,8 @@ def _refine_cloud(config, timer):
         with timer.stage("tessellate"):
             mesh = hint.tessellate(points, normals)
         config.log(2, f" {len(mesh.faces)} faces.")
+        if config.verbosity >= 3:
+            save_mesh(mesh, "recon_orig.obj")
 
         # the renderer and camera policy use a decimated proxy of a huge
         # mesh; the saved output mesh stays full resolution
@@ -254,10 +428,10 @@ def _refine_cloud(config, timer):
                       + ", ".join(map(str, sides)) + ",")
 
         config.log(1, "Tracking the whole clip...")
-        new_pts, new_nrm = [points], [normals]
+        new_pts, new_nrm, new_prov = [points], [normals], [prov]
         bundles = hint.camera_bundles()
         depth_mode = _effective_depth_mode(config, hint.iteration)
-        if len(bundles) > 1:
+        if len(bundles) > 1 and config.verbosity < 3:
             results = _process_bundles_batched(config, renderer, bundles,
                                                timer, mode=depth_mode)
         else:
@@ -268,14 +442,20 @@ def _refine_cloud(config, timer):
         for (fa, _), (pts, nrm, _) in zip(bundles, results):
             new_pts.append(pts)
             new_nrm.append(nrm)
+            new_prov.append(np.full(len(pts), hint.iteration * 1000 + fa,
+                                    np.int32))
             config.log(2, f" After processing main frame {fa}: "
                           f"{sum(len(p) for p in new_pts)} points")
         points = np.concatenate(new_pts)
         normals = np.concatenate(new_nrm)
+        prov = np.concatenate(new_prov)
 
+        if config.verbosity >= 3:
+            _points_obj(points, "purepoints.obj")
         with timer.stage("filter_points"):
-            points, normals, _ = filter_points(
+            points, normals, kept = filter_points(
                 points, normals, hint.filter_radius_sq(), device=config.device)
+        prov = prov[kept]
         config.log(2, f" {len(points)} filtered points")
         if timer.enabled:
             config.log(2, timer.report())
@@ -285,4 +465,5 @@ def _refine_cloud(config, timer):
                             hint.alpha_vals, hint.iteration,
                             hint.rng.bit_generator.state)
 
+    hint.point_provenance = prov
     return points, normals, hint

@@ -388,9 +388,11 @@ class Renderer:
                            torch.as_tensor(sample_xy, dtype=torch.float32,
                                            device=self.device))
 
-    def projected(self, camera, frame, projector, depth_main=None):
+    def projected(self, camera, frame, projector, depth_main=None,
+                  shadow_sample: str = "nearest"):
         """Projective texturing of one side frame into one main view:
-        (intensity (H, W), mask (H, W) bool)."""
+        (intensity (H, W), mask (H, W) bool); ``shadow_sample`` is the
+        shadow map's sampler (nearest or bilinear)."""
         from meshrecon_torch.raster.fragment import projected_image_batched
 
         self._check_loaded()
@@ -400,5 +402,6 @@ class Renderer:
         inten, mask = projected_image_batched(
             self._camera(camera)[None], depth_main[None],
             frame.to(self.device)[None, None],
-            self._camera(projector)[None, None], depth_side[None, None])
+            self._camera(projector)[None, None], depth_side[None, None],
+            shadow_sample=shadow_sample)
         return inten[0, 0], mask[0, 0]

@@ -30,7 +30,8 @@ from meshrecon.pipeline.reconstruct import reconstruct as j_reconstruct
 from meshrecon_torch import cli
 from meshrecon_torch.io.obj import read_mesh
 from meshrecon_torch.pipeline import checkpoint, reconstruct
-from meshrecon_torch.pipeline.config import Config, config_from_args
+from meshrecon_torch.pipeline.config import (Config, config_from_args,
+                                            configs_from_args)
 from meshrecon_torch.utils.profiling import StageTimer, device_busy
 
 torch.set_num_threads(1)
@@ -170,15 +171,37 @@ def test_device_busy_merges_device_events_only():
 
 
 @pytest.mark.parametrize("flag", [
-    ["-e"], ["--mesh-devices", "2"], ["--scene-devices", "2"],
-    ["--ensemble-seeds", "1,2"], ["--preset", "quality"], ["-V"], [],
-    ["tracks/koberec.yaml"]])
+    ["--mesh-devices", "2"], ["--scene-devices", "2"]])
 def test_unported_flags_raise(flag):
-    # [] leaves out --synthetic: video decode is the unported path
-    synthetic = ["--synthetic", "sphere"] if flag else []
-    argv = ["tracks/koule-tr.yaml"] + flag + ["--device", "cpu"] + synthetic
+    argv = ["tracks/koule-tr.yaml"] + flag + ["--device", "cpu",
+                                              "--synthetic", "sphere"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         config_from_args(argv)
+
+
+def test_missing_clip_raises():
+    """Without --synthetic the clip is decoded; koule-tr's clip does not
+    ship, so reading it raises."""
+    with pytest.raises(FileNotFoundError, match="koule-perlin"):
+        config_from_args(["tracks/koule-tr.yaml", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag,field,value", [
+    (["-e"], "exposure", None),
+    (["--ensemble-seeds", "1,2"], "ensemble_seeds", (1, 2)),
+    (["--preset", "quality"], "ensemble_seeds", (0, 10, 20)),
+    (["-V"], "verbosity", 99),
+    (["tracks/koberec.yaml"], "out_file_name", "tracks/koule-tr.obj")],
+    ids=["e", "ensemble", "preset", "V", "scenes"])
+def test_ported_flags_are_accepted(flag, field, value):
+    """The flags that raised before their paths were ported now land in
+    the first scene's Config (-e is ignored with --synthetic, as in the
+    JAX package)."""
+    argv = ["tracks/koule-tr.yaml"] + flag + ["--device", "cpu", "-s", "16",
+                                              "--synthetic", "sphere"]
+    cfgs = configs_from_args(argv)
+    assert len(cfgs) == (2 if flag == ["tracks/koberec.yaml"] else 1)
+    assert getattr(cfgs[0], field) == value
 
 
 @pytest.mark.parametrize("flag,field,value,attr", [
