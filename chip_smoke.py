@@ -40,7 +40,10 @@ in the same alternating rounds, and must equal them bit for bit.
    kernels: SETUP (the triangle setup) bitwise against ``pack_records``
    (NaN-aware) and BIN (the tile lists) against ``bin_chunks`` at chunks 8
    and 16 and ``bin_superchunks`` at chunk 8 (counts and list prefixes
-   equal), at 16 cameras on the 16,384- and 65,536-triangle spheres.
+   equal), at 16 cameras on the 16,384- and 65,536-triangle spheres; BIN
+   is timed in 7 alternating rounds against its library call, the
+   ``torch.sort`` of the tile keys plus the ``sum`` of their activity that
+   the JAX package bins with (binned.py:597-598, 612-613).
    Then the raster phase. K5 (the two-level raster, one kernel for
    the TPU's K5a and K5b) bitwise against ``render_depth`` through
    ``render_depth_binned(two_level=True)`` at one camera (K5a) and
@@ -125,7 +128,23 @@ in the same alternating rounds, and must equal them bit for bit.
    driver's depth against ``raster.reference.render_depth_reference``
    (coverage disagreement under 1%, 99% of depths within 1e-2 NDC:
    tests/test_raster.py's golden-scene bounds).
-10. Prints one JSON line of per-kernel results, then the device line
+10. The quality tools and the meshing backends, two phases, each with its
+   wall seconds. ``quality``, at 640x480 on the card: the quality harness
+   on koule-tr, koberec- and zatisi (``default``; exit code 0 by its own
+   bounds, a row a scene; SETUP, BIN, K1, K2, K3 and K4 must launch), the
+   seed study on koule at ``trim2``, seed 3 (K3c must launch; its row
+   beside the recorded one, within the default's mesh bound), error_attrib
+   at seed 3 and 320x240 with ``--dump`` (sections A, B and D printed, one
+   provenance code per point) and remesh_lab on that dump; each with its
+   wall seconds and StageTimer split. ``meshing``: the meshing driver's
+   alpha, Poisson and greedy modes on its torus (faces, seconds), and
+   ``rbf_surface`` on
+   that torus at grid 64 and 1,500 points with TF32 switched on around the
+   call: its field at 16,384 grid points against the same fit evaluated in
+   float64 on the host (within 1e-5 of max|f|), its mesh on the torus
+   (median |tube distance - 0.4| under 0.02), the host fit seconds, the
+   grid evaluation's ms (CUDA events), faces and peak memory.
+11. Prints one JSON line of per-kernel results, then the device line
    ``{"ok": true, "device": {...}}`` last. Each kernel's ``launches`` is
    the count of the path it serves, read just after that path's run with
    the counters reset just before: SETUP, BIN, K1, K2, K3, K3c and K4 from
@@ -606,18 +625,38 @@ def binning_phase(torch, dev, res, slice_args):
                                                          0)))
             entries = int(want_counts.sum().item())
             del lists, live, want_lists
-            ms = _cuda_ms(torch, lambda: binned.tile_lists(
-                plain_cbox, H, W, supers), 20)
+            # the tile keys the JAX package sorts (binned.py:590-598)
+            keys, active = binned._tile_keys(
+                *binned._group_boxes(*plain_cbox.unbind(1), supers), H, W,
+                binned.TILE, binned.TILE)
+
+            def library_bin():
+                # the two calls that make the lists and counts from the
+                # tile keys (binned.py:597-598, 612-613 in the JAX package)
+                return (torch.sort(keys, dim=-1).values,
+                        active.sum(-1, dtype=torch.int32))
+
+            if not torch.equal(library_bin()[1], want_counts):
+                raise AssertionError("BIN's library call: counts differ")
+            bin_label = f"{label}, chunk {chunk}" + (
+                f", {supers} chunks a superchunk" if supers > 1 else "")
+            ms = _interleaved(f"raster_bin [{bin_label}] against torch.sort "
+                              "+ sum of its tile keys", {
+                                  "BIN": lambda: _cuda_ms(
+                                      torch, lambda: binned.tile_lists(
+                                          plain_cbox, H, W, supers), 20),
+                                  "torch.sort": lambda: _cuda_ms(
+                                      torch, library_bin, 20)})
+            del keys, active
             plain_ms = _cuda_ms(torch, plain_bin, 3)
             # bytes: chunk boxes in, the listed ids and the counts out;
             # operations: the four comparisons of each listed group (the
             # least any binning does; the rest is skipped by unions)
-            res.add(binned.BIN, f"{label}, chunk {chunk}"
-                    + (f", {supers} chunks a superchunk" if supers > 1
-                       else ""),
-                    0.0 if same else float("inf"), 0.0, ms, plain_ms,
+            res.add(binned.BIN, bin_label,
+                    0.0 if same else float("inf"), 0.0, ms["BIN"], plain_ms,
                     work=(plain_cbox.numel() * 4 + (entries + ncam * ntiles)
-                          * 4, 4 * entries))
+                          * 4, 4 * entries),
+                    library_ms=ms["torch.sort"])
             slots = want_counts.numel() * (plain_cbox.shape[-1] // supers)
             print(f"raster_bin [{label}, chunk {chunk}, supers {supers}]: "
                   f"counts and list prefixes equal: {same}; {entries} list "
@@ -1897,6 +1936,229 @@ def drivers_phase(torch, dev, flow_path, raster_path):
     print(f"phase drivers: {time.perf_counter() - t_phase:.1f} s")
 
 
+# the harness's scenes, all three at 640x480
+QUALITY_SCENES = "koule-tr,koberec-,zatisi"
+# the seed study's koule row at trim2, seed 3, 640x480 as PERF.md records
+# it from an earlier run on an H100 80GB HBM3 at 700 W (median, p90 of
+# |r - R| / R)
+SEED_STUDY_RECORDED = (0.0174, 0.2035)
+PROGRESS = {"Meshing...", "Choosing cameras...", "Tracking the whole clip...",
+            "Calculating final mesh..."}
+# error_attrib's and remesh_lab's scale: 320x240 (at 640x480 the two took
+# 66.5 s of the phase's 226.0 on an H100 80GB HBM3 at 700 W; the harness
+# and the seed study stay at full size)
+ATTRIB_SCALE = 2
+RBF_GRID, RBF_POINTS = 64, 1500
+RBF_SAMPLES = 16384  # grid points held against the float64 host evaluation
+TORUS_TUBE = 0.4  # the meshing driver's torus: R 1, r 0.4
+
+
+def _tool(torch, label, main, argv, timer=None):
+    """``main(argv)`` of a tool in-process, its output captured and printed
+    (less the refinement's progress lines); with ``timer`` its StageTimer
+    split too. Returns (exit code, output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    kwargs = {} if timer is None else {"timer": timer}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line not in PROGRESS:
+            print(f"  {line}")
+    print(f"{label} {' '.join(argv)}: rc {rc}, wall {wall:.2f} s")
+    if timer is not None:
+        print(f"{label} stages (card-synchronized wall seconds):")
+        for line in timer.report().splitlines():
+            print(f"  {line}")
+    return rc, text
+
+
+def quality_phase(torch, path, sweep_path):
+    """The quality tools on the card: the harness on koule-tr, koberec-
+    and zatisi at 640x480 by its own bounds (SETUP, BIN, K1, K2, K3, K4
+    must launch), the seed study on Queue C's inputs (K3c must launch),
+    error_attrib with a dump at 320x240 and remesh_lab on that dump."""
+    import re
+
+    from meshrecon_torch.kernels import all_kernels
+    from meshrecon_torch.tools import (error_attrib, quality_harness,
+                                       remesh_lab, seed_study)
+    from meshrecon_torch.utils.profiling import StageTimer
+
+    t_phase = time.perf_counter()
+    kernels = all_kernels()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+
+    _reset(kernels)
+    rc, text = _tool(torch, "quality_harness", quality_harness.main, [
+        "--scale", "1", "--scenes", QUALITY_SCENES, "--configs", "default",
+        "--device", "cuda"], StageTimer())
+    rows = re.findall(r"^default\s+\d+\s+[\d.]+\s+[\d.]+\s+[\d.]+$",
+                      text, re.M)
+    _launched(kernels, path, "quality_harness")
+    scenes = QUALITY_SCENES.count(",") + 1
+    if rc != 0 or len(rows) != scenes:
+        raise AssertionError(f"quality_harness: rc {rc}, {len(rows)} rows "
+                             f"({scenes} expected)")
+
+    _reset(kernels)
+    rc, text = _tool(torch, "seed_study", seed_study.main, [
+        "--scale", "1", "--seeds", "3", "--configs", "trim2", "--device",
+        "cuda"], StageTimer())
+    _launched(kernels, sweep_path, "seed_study")
+    row = re.search(r"^trim2\s+3\s+(\d+)\s+([\d.]+)\s+([\d.]+)", text,
+                    re.M)
+    if rc != 0 or row is None:
+        raise AssertionError(f"seed_study: rc {rc}, no trim2 row")
+    med, p90 = float(row.group(2)), float(row.group(3))
+    print(f"seed_study trim2 seed 3 at 640x480: {row.group(1)} faces, "
+          f"median {med:.4f}, p90 {p90:.4f} |r - R| / R (recorded: "
+          f"{SEED_STUDY_RECORDED[0]} / {SEED_STUDY_RECORDED[1]})")
+    bound_med, bound_p90 = E2E_BOUNDS["default"]
+    if not (med <= bound_med and p90 <= bound_p90):
+        raise AssertionError(f"seed_study: off the default's bound ({med}, "
+                             f"{p90})")
+
+    dump = OUT_DIR / "attrib_{seed}.npz"
+    rc, text = _tool(torch, "error_attrib", error_attrib.main, [
+        "--scale", str(ATTRIB_SCALE), "--seeds", "3", "--dump", str(dump),
+        "--device", "cuda"], StageTimer())
+    missing = [s_ for s_ in ("A  cloud", "B  bundle", "D  oracle")
+               if s_ not in text]
+    dumped = np.load(str(dump).format(seed=3))
+    prov, points = dumped["prov"], dumped["points"]
+    print(f"error_attrib dump: {len(points)} points, {len(prov)} provenance "
+          f"codes ({len(np.unique(prov))} distinct), keys {dumped.files}")
+    if rc != 0 or missing or len(prov) != len(points) or not len(points):
+        raise AssertionError(f"error_attrib: rc {rc}, sections missing "
+                             f"{missing}, {len(prov)} codes for "
+                             f"{len(points)} points")
+
+    rc, text = _tool(torch, "remesh_lab", remesh_lab.main, [
+        str(dump).format(seed=3), "--device", "cuda"])
+    if rc != 0 or not re.search(r"^baseline\s+\d+", text, re.M):
+        raise AssertionError(f"remesh_lab: rc {rc}, no baseline row")
+    print(f"phase quality: {time.perf_counter() - t_phase:.1f} s")
+
+
+def _tube_error(v3):
+    """| distance to the torus' core circle - r | of (N, 3) points."""
+    ring = np.hypot(np.hypot(v3[:, 0], v3[:, 1]) - 1.0, v3[:, 2])
+    return np.abs(ring - TORUS_TUBE)
+
+
+def _rbf_f64(centers, w, c, pts):
+    """The fitted RBF at (M, 3) points, float64 NumPy on the host."""
+    out = np.empty(len(pts))
+    for s_ in range(0, len(pts), 256):
+        p = pts[s_:s_ + 256]
+        d = p[:, None, :] - centers[None]
+        r = np.sqrt(np.maximum((d * d).sum(-1), 1e-20))
+        out[s_:s_ + 256] = (r ** 3) @ w + c[0] + p @ c[1:]
+    return out
+
+
+def meshing_phase(torch, dev):
+    """The meshing driver's three modes on the card's machine, and the RBF
+    surface of the driver's torus with TF32 switched on around the call:
+    its field against the same fit in float64 on the host, its mesh
+    against the torus."""
+    import os
+
+    from meshrecon_torch.io.obj import read_mesh
+    from meshrecon_torch.meshing import driver, rbf
+
+    t_phase = time.perf_counter()
+    work = (OUT_DIR / "meshing").resolve()
+    work.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        for mode in ("alpha", "poisson", "greedy"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = driver.main([mode, "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            mesh = read_mesh(f"test/torus_{mode}.obj")
+            v3 = mesh.vertices[:, :3] / mesh.vertices[:, 3:4]
+            print(f"meshing driver {mode}: rc {rc}, {len(mesh.faces)} faces, "
+                  f"{wall:.2f} s, median |tube distance - 0.4| "
+                  f"{float(np.median(_tube_error(v3))):.5f}")
+            if rc != 0 or not len(mesh.faces):
+                raise AssertionError(f"meshing driver {mode}: rc {rc}, "
+                                     f"{len(mesh.faces)} faces")
+    finally:
+        os.chdir(cwd)
+
+    pts, nrm = driver.fixture_points()
+    seen = {}
+
+    def timed_fit(inner):
+        def fit(*args):
+            t0 = time.perf_counter()
+            out = inner(*args)
+            seen["fit_s"] = time.perf_counter() - t0
+            return out
+        return fit
+
+    def recorded_eval(inner):
+        def ev(*args, **kwargs):
+            seen["args"] = args
+            seen["field"] = inner(*args, **kwargs)
+            return seen["field"]
+        return ev
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _wrap(rbf, "_rbf_fit_host", timed_fit), \
+                _wrap(rbf, "rbf_eval_grid", recorded_eval):
+            mesh = rbf.rbf_surface(pts, nrm, grid=RBF_GRID,
+                                   max_points=RBF_POINTS, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+        print(f"tf32 around rbf_surface: "
+              f"{torch.backends.cuda.matmul.allow_tf32}")
+        centers, w, c, lo, scale, grid = seen["args"][:6]
+        eval_ms = _cuda_ms(torch, lambda: rbf.rbf_eval_grid(
+            centers, w, c, lo, scale, grid, dev), 3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    field = seen["field"].reshape(-1).cpu().numpy()
+    pick = np.random.default_rng(0).choice(len(field), RBF_SAMPLES,
+                                           replace=False)
+    grid_pts = rbf.grid_points(lo, scale, grid, "cpu").double().numpy()
+    want = _rbf_f64(centers, w, c, grid_pts[pick])
+    fmax = float(np.abs(field).max())
+    err = float(np.abs(field[pick] - want).max())
+    v3 = mesh.vertices[:, :3] / mesh.vertices[:, 3:4]
+    tube = float(np.median(_tube_error(v3)))
+    print(f"rbf_surface [torus, grid {grid}, {len(centers)} centres]: host "
+          f"fit {seen['fit_s']:.2f} s, grid evaluation {eval_ms:.3f} ms "
+          f"(CUDA events, mean of 3 after the call's own), the call "
+          f"{wall:.2f} s, {len(mesh.faces)} faces, peak "
+          f"{peak_mb:.1f} MB above the call's start; field at "
+          f"{RBF_SAMPLES} grid points against float64 on the host: max "
+          f"|diff| {err:.3e} (bound 1e-5 x max|f| = {1e-5 * fmax:.3e}); "
+          f"median |tube distance - 0.4| {tube:.5f} (bound 0.02)")
+    if not (err <= 1e-5 * fmax and tube < 0.02 and len(mesh.faces)):
+        raise AssertionError("rbf_surface: field or mesh off its bound")
+    print(f"phase meshing: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Chip check of meshrecon_torch on one GPU.")
@@ -2005,6 +2267,8 @@ def main(argv=None) -> int:
     video_phase(torch, dev, (*render, K2, K3, K3C, K4))
     scenes_phase(torch, dev, (*render, K2, K3, K3B, K4))
     drivers_phase(torch, dev, (K3, K3B), render)
+    quality_phase(torch, (*render, K2, K3, K4), (K3C,))
+    meshing_phase(torch, dev)
 
     # each kernel's launches on the path it serves
     path_launches = {k.name: default[k.name]

@@ -125,9 +125,10 @@ def _group_boxes(xmin, xmax, ymin, ymax, size: int):
             agg(ymin, torch.amin), agg(ymax, torch.amax))
 
 
-def _tile_lists(gxmin, gxmax, gymin, gymax, height, width, tile_h, tile_w):
-    """Per-tile sorted lists of the groups whose box overlaps the tile,
-    then the sentinel (the group count), and the counts."""
+def _tile_keys(gxmin, gxmax, gymin, gymax, height, width, tile_h, tile_w):
+    """(keys, active): per tile and group, the group's id where its box
+    overlaps the tile, else the sentinel (the group count); and the
+    overlaps."""
     n = gxmin.shape[-1]
     tx0, tx1, ty0, ty1 = tile_extents(height, width, tile_h, tile_w,
                                       gxmin.device)
@@ -139,6 +140,14 @@ def _tile_lists(gxmin, gxmax, gymin, gymax, height, width, tile_h, tile_w):
     keys = torch.where(
         active, torch.arange(n, dtype=torch.int32, device=gxmin.device),
         torch.tensor(n, dtype=torch.int32, device=gxmin.device))
+    return keys, active
+
+
+def _tile_lists(gxmin, gxmax, gymin, gymax, height, width, tile_h, tile_w):
+    """Per-tile sorted lists of the groups whose box overlaps the tile,
+    then the sentinel (the group count), and the counts."""
+    keys, active = _tile_keys(gxmin, gxmax, gymin, gymax, height, width,
+                              tile_h, tile_w)
     lists = torch.sort(keys, dim=-1).values
     counts = active.sum(dim=-1, dtype=torch.int32)
     return lists, counts

@@ -1,5 +1,5 @@
-"""Per-stage wall timers (port of meshrecon/utils/profiling.StageTimer),
-and the measurement helpers of the port's tools.
+"""Per-stage wall timers (port of meshrecon/utils/profiling.StageTimer and
+``stage_report``), and the measurement helpers of the port's tools.
 
 A stage's time ends when the work that produced its value is done: for a
 value that holds a CUDA tensor the timer calls ``torch.cuda.synchronize``
@@ -76,6 +76,10 @@ class StageTimer:
             lines.append(
                 f"{name:<30} {self.counts[name]:>5} {t:>9.3f} {mpix:>9.1f}")
         return "\n".join(lines)
+
+
+def stage_report(timer: StageTimer) -> str:
+    return timer.report()
 
 
 # the categories of torch.profiler's Chrome trace that run on the device
