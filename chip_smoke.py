@@ -144,7 +144,24 @@ in the same alternating rounds, and must equal them bit for bit.
    float64 on the host (within 1e-5 of max|f|), its mesh on the torus
    (median |tube distance - 0.4| under 0.02), the host fit seconds, the
    grid evaluation's ms (CUDA events), faces and peak memory.
-11. Prints one JSON line of per-kernel results, then the device line
+11. The last JAX tools, three phases, each with its wall seconds, the
+   counters reset just before each. ``micro``: the six timing tools
+   (``meshrecon_torch.tools.{perf_breakdown,flow_levels,flow_trans,
+   flow_micro,warp_micro,proj_micro}``) in-process at their defaults, the
+   JAX tools' 640x480, K=3 and reps; each prints its rows (CUDA events),
+   every row a finite ms or n/a where it names the TPU package's second
+   engine or a TPU layout flag, and SETUP, BIN, K1, K2, K3, K3b and K4
+   must launch. ``studies``, at 640x480: flow_e2e_quality's three
+   one-iteration flow runs (each mesh within the default's bound) and
+   iters_study at 14 and 12 sweeps, seed 3 (both meshes finite with
+   faces, and different: the sweep count reaches the run); SETUP, BIN,
+   K1, K2, K3, K3c and K4 must launch. ``config4``: baseline_configs c4,
+   the 32-frame, 64-plane sweep at 1080p (ms a solve, Mpix/s, the peak
+   memory the solve allocates), one solve's K3c launches (one a plane),
+   the depth finite where valid, and K3c alone at the middle plane's
+   inputs, 1x32x1080x1920, against its plain version (1e-4), its bound
+   and ``grid_sample``.
+12. Prints one JSON line of per-kernel results, then the device line
    ``{"ok": true, "device": {...}}`` last. Each kernel's ``launches`` is
    the count of the path it serves, read just after that path's run with
    the counters reset just before: SETUP, BIN, K1, K2, K3, K3c and K4 from
@@ -1421,6 +1438,15 @@ def sweep_problem(torch, dev):
     return args
 
 
+def _k3c_work(px, share):
+    """(bytes, operations) of K3c on ``px`` pixels of which ``share`` are
+    valid, as this data needs them: every pixel's mask byte read and float
+    written; a valid pixel's two coordinates and, at most, one image float
+    read, and ~22 operations (an invalid pixel reads nothing more)."""
+    valid = share * px
+    return 5 * px + 12 * valid, 22 * valid
+
+
 def k3c_phase(torch, dev, res, sweep_args):
     """K3c against its plain version on the sweep's coordinate fields: at
     K=4 sides the plane in the middle of the main cameras' rendered depth
@@ -1478,10 +1504,9 @@ def k3c_phase(torch, dev, res, sweep_args):
         lib_ms = _cuda_ms(torch, lambda: _library_sample(
             torch, lib_in, grid, "bilinear"), 50)
         # the same arithmetic in the same order (-fmad=false): 1e-4 on
-        # 0..255. bytes: image, coordinates, mask byte in, one float out;
-        # ~22 operations a valid pixel
+        # 0..255
         res.add(tile_warp.K3C, label, err, 1e-4, ms, plain_ms,
-                work=(17 * px, 22 * share * px), library_ms=lib_ms)
+                work=_k3c_work(px, share), library_ms=lib_ms)
 
 
 def _swept_ndc(out, mains):
@@ -2159,6 +2184,181 @@ def meshing_phase(torch, dev):
     print(f"phase meshing: {time.perf_counter() - t_phase:.1f} s")
 
 
+# the micro tools' rows that name what the port does not have (the TPU
+# package's second engine, a TPU layout flag): printed n/a with the reason
+MICRO_TOOLS = ("perf_breakdown", "flow_levels", "flow_trans", "flow_micro",
+               "warp_micro", "proj_micro")
+MICRO_NA = {"perf_breakdown": {"variational_flow(xla)"},
+            "flow_micro": {"flowK3 xla engine lv3", "flowK3 prod minpx5e5"},
+            "proj_micro": {"proj1 real depth xla"}}
+STUDY_ITERS = "14,12"  # the solver's default, and 12
+C4 = dict(h=1080, w=1920, k=32, d=64)  # BASELINE.json configuration 4
+
+
+def micro_phase(torch, path):
+    """The six timing tools in-process at their defaults, the JAX tools'
+    shapes (640x480, K=3, their reps): every row a finite ms or n/a where
+    the port lacks what the row names (MICRO_NA), and every kernel of
+    ``path`` launched."""
+    import importlib
+    import math
+
+    from meshrecon_torch.kernels import all_kernels
+
+    t_phase = time.perf_counter()
+    kernels = all_kernels()
+    _reset(kernels)
+    for name in MICRO_TOOLS:
+        tool = importlib.import_module(f"meshrecon_torch.tools.{name}")
+        t0 = time.perf_counter()
+        print(f"micro {name}:")
+        rows = tool.main([])
+        quality = rows.pop("quality", {})
+        na = {row for row, ms in rows.items() if ms is None}
+        bad = [row for row, ms in rows.items() if ms is not None
+               and not (math.isfinite(ms) and ms > 0)]
+        bad += [row for row, v in quality.items() if v is not None
+                and not (math.isfinite(v) and v > 0)]
+        print(f"micro {name}: {len(rows)} rows, n/a {sorted(na)}, "
+              f"{time.perf_counter() - t0:.1f} s")
+        if bad or na != MICRO_NA.get(name, set()):
+            raise AssertionError(f"micro {name}: rows not finite {bad}, "
+                                 f"n/a {sorted(na)}")
+    _launched(kernels, path, "micro")
+    print(f"phase micro: {time.perf_counter() - t_phase:.1f} s")
+
+
+def studies_phase(torch, path):
+    """The study tools at 640x480 on the card: flow_e2e_quality's three
+    one-iteration flow runs, each mesh within the default's bound, and
+    iters_study at 14 and 12 sweeps (seed 3), whose two meshes must
+    differ: the sweep count reaches the run. Every kernel of ``path``
+    must launch."""
+    import tempfile
+    from unittest import mock
+
+    from meshrecon_torch.io.obj import read_mesh
+    from meshrecon_torch.kernels import all_kernels
+    from meshrecon_torch.tools import flow_e2e_quality, iters_study
+    from meshrecon_torch.utils.profiling import StageTimer
+
+    t_phase = time.perf_counter()
+    kernels = all_kernels()
+    work = (OUT_DIR / "studies").resolve()
+    work.mkdir(parents=True, exist_ok=True)
+    _reset(kernels)
+    bound_med, bound_p90 = E2E_BOUNDS["default"]
+    with mock.patch.object(tempfile, "tempdir", str(work)):
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        rows = flow_e2e_quality.main(["1", "--device", "cuda"], timer=timer)
+        print(f"flow_e2e_quality 1: {time.perf_counter() - t0:.1f} s; stages "
+              "(card-synchronized wall seconds):")
+        for line in timer.report().splitlines():
+            print(f"  {line}")
+        for name, row in rows.items():
+            _check_sphere_mesh(work / f"fq_{name}.obj",
+                               f"flow_e2e_quality {name}",
+                               E2E_BOUNDS["default"])
+
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        rows = iters_study.main(["--iters", STUDY_ITERS, "--seeds", "3",
+                                 "--scale", "1", "--device", "cuda"],
+                                timer=timer)
+        print(f"iters_study --iters {STUDY_ITERS} --seeds 3: "
+              f"{time.perf_counter() - t0:.1f} s; stages "
+              "(card-synchronized wall seconds):")
+        for line in timer.report().splitlines():
+            print(f"  {line}")
+    meshes = []
+    for row in rows:
+        obj = work / f"iters_{row['iters']}_{row['seed']}.obj"
+        _check_sphere_mesh(obj, f"iters_study {row['iters']}")
+        meshes.append(read_mesh(str(obj)))
+    same = (meshes[0].vertices.shape == meshes[1].vertices.shape
+            and np.array_equal(meshes[0].vertices, meshes[1].vertices))
+    print(f"iters_study: {STUDY_ITERS} sweeps give "
+          f"{[len(m.faces) for m in meshes]} faces, "
+          f"{[round(r['med'], 4) for r in rows]} median |r - R| / R; the "
+          f"meshes {'are equal' if same else 'differ'}")
+    if same:
+        raise AssertionError("iters_study: the sweep count did not reach "
+                             "the run (equal meshes)")
+    _launched(kernels, path, "studies")
+    print(f"phase studies: {time.perf_counter() - t_phase:.1f} s")
+
+
+def config4_phase(torch, dev, res):
+    """baseline_configs c4 at 1080p, 32 sides, 64 planes: one solve's K3c
+    launches (one a plane), the depth finite where valid, the tool's ms,
+    Mpix/s and peak memory; then K3c alone at the middle plane's inputs
+    (1x32x1080x1920) against its plain version, its bound and
+    ``grid_sample``."""
+    from meshrecon_torch.depth import plane_sweep
+    from meshrecon_torch.flow import tile_warp
+    from meshrecon_torch.kernels import all_kernels
+    from meshrecon_torch.tools import baseline_configs
+
+    t_phase = time.perf_counter()
+    kernels = all_kernels()
+    h, w, k, d = C4["h"], C4["w"], C4["k"], C4["d"]
+    res_c4 = baseline_configs.config4(h, w, k, d, 3, dev)
+    depth, valid = res_c4["out"]["depth"], res_c4["out"]["valid"]
+    share = valid.float().mean().item()
+    print(f"config4: valid share {share:.4f}, peak {res_c4['peak_mb']:.0f} "
+          f"MB, {res_c4['ms']:.3f} ms a solve, {res_c4['mpix']:.2f} Mpix/s")
+    if not (share > 0.05 and torch.isfinite(depth[valid]).all()):
+        raise AssertionError("config4: depth not finite where valid, or no "
+                             "valid pixel")
+
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in baseline_configs.window(h, w, k)]
+    seen = []
+
+    def recorded(inner):
+        def sample(*a):
+            seen.append(a)
+            return inner(*a)
+        return sample
+
+    _reset(kernels)
+    with _wrap(plane_sweep, "tile_warp_sample_batched", recorded):
+        plane_sweep.plane_sweep_depth(*args, baseline_configs.Z_MIN,
+                                      baseline_configs.Z_MAX, num_depths=d)
+    torch.cuda.synchronize()
+    launches = tile_warp.K3C.launches
+    print(f"config4: one solve launched K3c {launches} times ({d} planes)")
+    if launches != d:
+        raise AssertionError(f"config4: K3c launched {launches} times, not "
+                             f"once a plane ({d})")
+    srcs, scol, srow, ok = seen[d // 2]
+    seen.clear()
+    px = srcs.numel()
+    share = ok.float().mean().item()
+    label = f"1x{k}x{h}x{w} (config4, plane {d // 2})"
+    out = tile_warp.tile_warp_sample_batched(srcs, scol, srow, ok)
+    ref = tile_warp.sample_bilinear_masked_plain(srcs, scol, srow, ok)
+    torch.cuda.synchronize()
+    if (out[~ok] != 0).any():
+        raise AssertionError("K3c: invalid pixels are not exactly 0")
+    err = (out - ref)[ok].abs().max().item() if share > 0 else 0.0
+    del out, ref
+    ms = _cuda_ms(torch, lambda: tile_warp.tile_warp_sample_batched(
+        srcs, scol, srow, ok), 20)
+    plain_ms = _cuda_ms(torch, lambda: tile_warp.sample_bilinear_masked_plain(
+        srcs, scol, srow, ok), 5)
+    grid = _grid(torch, scol, srow)
+    lib_in = srcs.reshape(-1, 1, h, w)
+    lib_ms = _cuda_ms(torch, lambda: _library_sample(
+        torch, lib_in, grid, "bilinear"), 20)
+    print(f"sample_bilinear_masked [{label}]: valid share {share:.4f}")
+    # k3c_phase's bound and work
+    res.add(tile_warp.K3C, label, err, 1e-4, ms, plain_ms,
+            work=_k3c_work(px, share), library_ms=lib_ms)
+    print(f"phase config4: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Chip check of meshrecon_torch on one GPU.")
@@ -2269,6 +2469,9 @@ def main(argv=None) -> int:
     drivers_phase(torch, dev, (K3, K3B), render)
     quality_phase(torch, (*render, K2, K3, K4), (K3C,))
     meshing_phase(torch, dev)
+    micro_phase(torch, (*render, K2, K3, K3B, K4))
+    studies_phase(torch, (*render, K2, K3, K3C, K4))
+    config4_phase(torch, dev, res)
 
     # each kernel's launches on the path it serves
     path_launches = {k.name: default[k.name]

@@ -1,9 +1,9 @@
 """Seeded synthetic problems for the fused dense update (numpy only).
 
-A copy of ``__graft_entry__._make_camera``, ``_sphere_soup`` and
-``_fused_problem`` of the JAX repository, so that the port and its chip
-check need nothing of the JAX side; a CPU test holds the two array for
-array.
+A copy of ``__graft_entry__._make_camera``, ``_plane_depth``,
+``_sphere_soup`` and ``_fused_problem`` of the JAX repository, so that the
+port and its chip check need nothing of the JAX side; CPU tests hold the
+two array for array.
 """
 
 from __future__ import annotations
@@ -26,6 +26,21 @@ def make_camera(fov=1.1, aspect=0.75, near=1.0, far=30.0, eye=(0, 0, 0)):
     w2c = np.eye(4, dtype=np.float32)
     w2c[:3, 3] = -np.asarray(eye, dtype=np.float32)
     return proj @ w2c
+
+
+def plane_depth(camera, z_world, h, w):
+    """(h, w) float32 NDC depth of the world plane z = ``z_world`` seen by
+    ``camera`` (float64 inverse), 1.0 where the plane lies outside the
+    depth range."""
+    inv = np.linalg.inv(camera.astype(np.float64))
+    cols = (np.arange(w) - w / 2.0) * 2.0 / w
+    rows = (h / 2.0 - np.arange(h)) * 2.0 / h
+    x, y = np.meshgrid(cols, rows)
+    a = np.einsum("ij,hwj->hwi", inv,
+                  np.stack([x, y, np.zeros_like(x), np.ones_like(x)], axis=-1))
+    b = inv[:, 2]
+    t = (z_world * a[..., 3] - a[..., 2]) / (b[2] - z_world * b[3])
+    return np.where(np.abs(t) <= 1, t, 1.0).astype(np.float32)
 
 
 def sphere_soup(n_theta=16, n_phi=16, center=(0, 0, -5.0), radius=1.5):

@@ -7,7 +7,9 @@ shadow map (+0.01 NDC bias), sample the side frame bilinearly.
 
 :func:`nearest_sample` and :func:`bilinear_sample` are the plain version of
 K2 (``flow/tile_warp.py::tile_warp_sample2_batched``), which
-:func:`projected_image_batched` calls. The shadow map is sampled nearest
+:func:`projected_image_batched` calls; :func:`projected_image`, the one
+camera form, is its B=1, K=1 slice. The JAX form's ``engine`` argument is
+not ported: the port has one implementation a device. The shadow map is sampled nearest
 (GL_NEAREST, shader.frag:17-18) or, with ``shadow_sample="bilinear"``
 (``--shadow-sample bilinear``), bilinearly at the frame sample's
 coordinates: the TPU kernel's ``nearest_a=False``
@@ -131,6 +133,22 @@ def projected_image_batched(cam_mains, depth_mains, frames, projectors,
     visible = shadow_z + 0.01 > sz
     mask = valid & visible & inframe
     return torch.where(mask, intensity, 0.0), mask
+
+
+def projected_image(camera, depth_main, frame, projector, depth_side,
+                    shadow_sample: str = "nearest"):
+    """Reproject ``frame`` (seen by ``projector``) into ``camera``'s view:
+    the B=1, K=1 slice of :func:`projected_image_batched`.
+
+    camera, projector: (4, 4); depth_main, depth_side: (H, W) NDC depth;
+    frame: (H, W). Returns (intensity (H, W) float32, mask (H, W) bool),
+    the mask false where the fragment is shadowed, outside the projector's
+    frustum or background."""
+    intensity, mask = projected_image_batched(
+        camera[None], depth_main[None], frame[None, None],
+        projector[None, None], depth_side[None, None],
+        shadow_sample=shadow_sample)
+    return intensity[0, 0], mask[0, 0]
 
 
 def mix_background(intensity, mask, background, depth):

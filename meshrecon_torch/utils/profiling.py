@@ -102,11 +102,13 @@ def device_busy(trace: dict) -> tuple[float, int]:
     return busy_us / 1e6, len(spans)
 
 
-def best_ms(fn, reps: int, device, best_of: int = 1) -> float:
+def best_ms(fn, reps: int, device, best_of: int = 1,
+            warm_up: bool = True) -> float:
     """Milliseconds per call of ``fn``: the best of ``best_of`` passes of
-    ``reps`` calls after one warm-up call; CUDA events on the card, the host
-    clock on the CPU."""
-    fn()
+    ``reps`` calls after one warm-up call (unless the caller has just made
+    it); CUDA events on the card, the host clock on the CPU."""
+    if warm_up:
+        fn()
     best = math.inf
     for _ in range(best_of):
         if device.type == "cpu":
@@ -139,3 +141,32 @@ def device_line(device) -> str:
         device.index or 0] if smi.returncode == 0 else "not read"
     return (f"device: {torch.cuda.get_device_name(device)} (nvidia-smi: "
             f"{limit.strip()})")
+
+
+class RowTimer:
+    """The timing rows of a micro-benchmark tool, printed as they are
+    taken: ``time(name, fn)`` makes one warm-up call (its seconds, the
+    kernels built beforehand, take the place of the JAX tools' compile
+    column), then takes :func:`best_ms` over ``reps`` calls, best of
+    ``best_of``; ``na(name, reason)`` prints a row that the port does not
+    have. ``rows`` maps each name, in order, to its ms (None for n/a)."""
+
+    def __init__(self, device, reps: int, best_of: int, width: int,
+                 digits: int = 2):
+        self.device, self.reps, self.best_of = device, reps, best_of
+        self.width, self.digits = width, digits
+        self.rows = {}
+
+    def time(self, name: str, fn) -> float:
+        t0 = time.perf_counter()
+        _sync(fn())
+        warm = time.perf_counter() - t0
+        ms = best_ms(fn, self.reps, self.device, self.best_of, warm_up=False)
+        print(f"{name:<{self.width}} {ms:8.{self.digits}f} ms"
+              f" (warm-up {warm:5.1f}s)", flush=True)
+        self.rows[name] = ms
+        return ms
+
+    def na(self, name: str, reason: str) -> None:
+        print(f"{name:<{self.width}} {'n/a':>8}    ({reason})", flush=True)
+        self.rows[name] = None

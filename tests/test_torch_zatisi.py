@@ -25,6 +25,20 @@ own:
 and writes no file.
 Only the ``jax`` and ``frames`` modes import JAX, so ``draws port`` runs
 where JAX is not installed.
+
+Iteration 1's stages on identical inputs, on the CPU (``stages``):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_zatisi.py stages jax F.npy 4 J.npz
+    python tests/test_torch_zatisi.py stages port F.npy 4 P.npz
+    python tests/test_torch_zatisi.py compare J.npz P.npz
+
+``stages`` runs the harness's default in one package up to iteration 1's
+filter and saves the chosen bundles, each batched update's ten inputs and
+its outputs, and the cloud before and after the filter. ``compare`` runs
+the port's update on JAX's saved inputs and holds each main camera's
+outputs to JAX's by meshrecon_torch/parity.py's metrics, then the port's
+filter on JAX's unfiltered cloud against JAX's filtered one, then the
+port's own run (its inputs, outputs and cloud) against JAX's.
 """
 
 import contextlib
@@ -230,9 +244,250 @@ def test_iteration_one_probe_matches_jax(monkeypatch):
     assert off["port"].max() <= 1.1 * off["jax"].max()
 
 
+class _StageStop(Exception):
+    """Raised after iteration 1's filter: the rest of the run is not
+    needed."""
+
+
+def stages(which, path, seed, out):
+    """The harness's default at 640x480 in one package (``jax`` or
+    ``port``, the port on the CPU) on the frames saved at ``path``, up to
+    iteration 1's filter; saves to ``out`` the bundles, each batched
+    update's inputs (``in<b>_<i>``) and outputs (``out<b>_<key>``), and
+    the cloud before (``pre_*``) and after (``post_*``) the filter."""
+    frames = np.load(path)
+    rec, batches = {}, []
+    if which == "jax":
+        import jax.numpy as jnp
+
+        from meshrecon.io.tracks import load_tracks
+        from meshrecon.pipeline.config import Config
+
+        mod = importlib.import_module("meshrecon.pipeline.reconstruct")
+        cfg = Config(track=load_tracks(TRACK), frames=jnp.asarray(frames),
+                     seed=seed, min_bundles=4, out_file_name="unused.obj")
+
+        def recorded(make):
+            def builder(*a, **k):
+                step = make(*a, **k)
+
+                def run(*args):
+                    o = step(*args)
+                    batches.append(([np.asarray(x) for x in args],
+                                    {k_: np.asarray(v) for k_, v in
+                                     o.items()}))
+                    return o
+                return run
+            return builder
+
+        patches = [mock.patch.object(mod, "_vmapped_step",
+                                     recorded(mod._vmapped_step)),
+                   mock.patch.object(mod, "_sweep_step",
+                                     recorded(mod._sweep_step)),
+                   mock.patch.object(mod, "_prewarm_flow_step",
+                                     lambda *a, **k: None)]
+        filt = mod.filter_points
+    else:
+        import torch
+
+        from meshrecon_torch.io.tracks import load_tracks
+        from meshrecon_torch.pipeline.config import Config
+
+        mod = importlib.import_module("meshrecon_torch.pipeline.reconstruct")
+        cfg = Config(track=load_tracks(TRACK), frames=torch.from_numpy(frames),
+                     device="cpu", seed=seed, min_bundles=4,
+                     out_file_name="unused.obj")
+
+        def recorded(make):
+            def builder(config):
+                update = make(config)
+
+                def run(*args):
+                    o = update(*args)
+                    batches.append(([a.cpu().numpy() for a in args],
+                                    {k_: v.cpu().numpy() for k_, v in
+                                     o.items()}))
+                    return o
+                return run
+            return builder
+
+        patches = [mock.patch.object(mod, "main_update",
+                                     recorded(mod.main_update)),
+                   mock.patch.object(mod, "sweep_update",
+                                     recorded(mod.sweep_update))]
+        filt = mod.filter_points
+
+    def stop_after_filter(points, normals, radius_sq, **kwargs):
+        kept = filt(points, normals, radius_sq, **kwargs)
+        rec.update(pre_points=np.asarray(points),
+                   pre_normals=np.asarray(normals),
+                   radius_sq=np.float64(radius_sq),
+                   post_points=np.asarray(kept[0]),
+                   post_normals=np.asarray(kept[1]),
+                   post_kept=np.asarray(kept[2]))
+        raise _StageStop
+
+    choose = mod.Heuristic.choose_cameras
+
+    def chosen(self, mesh, cameras, renderer):
+        count = choose(self, mesh, cameras, renderer)
+        rec["bundles"] = np.array([(m, *sorted(s), *[-1] * (16 - len(s)))
+                                   for m, s in self.camera_bundles()])
+        rec["alpha_faces"] = np.int64(len(mesh.faces))
+        print(f"iteration {self.iteration}: mesh {len(mesh.faces)} faces, "
+              f"bundles {rec['bundles'].tolist()}", flush=True)
+        return count
+
+    patches += [mock.patch.object(mod, "filter_points", stop_after_filter),
+                mock.patch.object(mod.Heuristic, "choose_cameras", chosen)]
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        try:
+            mod.reconstruct(cfg)
+        except _StageStop:
+            pass
+    for b, (args, outs) in enumerate(batches):
+        rec.update({f"in{b}_{i}": a for i, a in enumerate(args)})
+        rec.update({f"out{b}_{k}": v for k, v in outs.items()})
+    rec["n_batches"] = np.int64(len(batches))
+    np.savez(out, **rec)
+    print(f"{which}: {len(batches)} batched updates, "
+          f"{len(rec['pre_points'])} points before the filter, "
+          f"{len(rec['post_points'])} after -> {out}", flush=True)
+
+
+def _metrics_line(label, metrics):
+    from meshrecon_torch import parity
+
+    missed = [k for k, (kind, bound) in parity.SLICE_BOUNDS.items()
+              if not (metrics[k] >= bound if kind == "min"
+                      else metrics[k] <= bound)]
+    print(f"{label}: " + ", ".join(f"{k} {v:.4g}" for k, v in
+                                   metrics.items())
+          + (f"  MISSED {missed}" if missed else "  within parity.py"),
+          flush=True)
+    return missed
+
+
+def _cloud_line(label, a_pts, b_pts):
+    """Counts of two clouds and, if equal, their largest point gap."""
+    text = f"{label}: {len(a_pts)} against {len(b_pts)} points"
+    if len(a_pts) == len(b_pts) and len(a_pts):
+        p3a = a_pts[:, :3] / a_pts[:, 3:4]
+        p3b = b_pts[:, :3] / b_pts[:, 3:4]
+        gap = np.linalg.norm(p3a - p3b, axis=1)
+        text += (f", largest gap {gap.max():.3e}, median {np.median(gap):.3e}"
+                 f", equal {int((gap == 0).sum())}")
+    print(text, flush=True)
+
+
+def _unit(n):
+    length = np.linalg.norm(n, axis=-1, keepdims=True)
+    return n / np.where(length == 0, 1.0, length)
+
+
+def _normals_split(j, bundles):
+    """The normals stage alone: the port's ``estimate_normals_batched`` on
+    JAX's point4, pdf and valid of each batch against JAX's normals, and
+    both against the same stage evaluated in float64 (torch.float32 read
+    as float64 inside the call): the share of valid pixels whose
+    orientation (the sign of the camera vote sum) differs."""
+    import torch
+
+    from meshrecon_torch.depth import normals
+
+    def flips(a, b):
+        return float(np.mean(np.sum(a * b, -1) < 0))
+
+    for b in range(int(j["n_batches"])):
+        p4, pdf, valid = (torch.from_numpy(j[f"out{b}_{k}"])
+                          for k in ("point4", "pdf", "valid"))
+        centers, cvalid, n_side = (torch.from_numpy(j[f"in{b}_{i}"])
+                                   for i in (7, 8, 9))
+        ours = normals.estimate_normals_batched(p4, valid, pdf, centers,
+                                                cvalid, n_side).numpy()
+        with mock.patch.object(torch, "float32", torch.float64):
+            ref64 = normals.estimate_normals_batched(
+                p4.double(), valid, pdf.double(), centers.double(), cvalid,
+                n_side).numpy()
+        for i in range(len(p4)):
+            if 4 * b + i >= len(bundles):
+                continue
+            v = j[f"out{b}_valid"][i]
+            uj, uo, u64 = (_unit(x[i][v]) for x in (j[f"out{b}_normals"],
+                                                     ours, ref64))
+            print(f"normals stage, main camera {bundles[4 * b + i]}, on "
+                  f"JAX's points: flips port/JAX {flips(uo, uj):.5f}; "
+                  f"against float64: JAX {flips(uj, u64):.5f}, port "
+                  f"{flips(uo, u64):.5f}", flush=True)
+
+
+def compare(jax_path, port_path):
+    """The port's update on JAX's saved inputs against JAX's outputs per
+    main camera, the port's filter on JAX's cloud, then the port's own
+    run against JAX's."""
+    import torch
+
+    from meshrecon_torch import parity, state
+    from meshrecon_torch.io.tracks import load_tracks
+    from meshrecon_torch.pipeline.config import Config
+    from meshrecon_torch.points.filter import filter_points
+
+    mod = importlib.import_module("meshrecon_torch.pipeline.reconstruct")
+    j, p = np.load(jax_path), np.load(port_path)
+    print(f"bundles equal: {np.array_equal(j['bundles'], p['bundles'])}; "
+          f"alpha mesh faces: jax {int(j['alpha_faces'])}, port "
+          f"{int(p['alpha_faces'])}", flush=True)
+    cfg = Config(track=load_tracks(TRACK), frames=torch.zeros(1, H, W),
+                 device="cpu", seed=0, min_bundles=4)
+    update = mod.main_update(cfg)
+    bundles = [m for m in j["bundles"][:, 0]]
+    missed_any = []
+    for b in range(int(j["n_batches"])):
+        args = [j[f"in{b}_{i}"] for i in range(10)]
+        if b < int(p["n_batches"]):
+            same = [i for i in range(10)
+                    if np.array_equal(args[i], p[f"in{b}_{i}"])]
+            print(f"batch {b}: inputs equal to the port's own run: {same}",
+                  flush=True)
+        with torch.no_grad():
+            ours = state.to_numpy(update(*state.from_numpy(args, "cpu")))
+        ref = {k: j[f"out{b}_{k}"] for k in ours}
+        for i in range(len(args[2])):
+            cam = bundles[4 * b + i] if 4 * b + i < len(bundles) else None
+            if cam is None:
+                continue
+            one = {k: v[i] for k, v in ours.items()}
+            one_ref = {k: v[i] for k, v in ref.items()}
+            missed_any += _metrics_line(
+                f"update, main camera {cam}, port on JAX's inputs",
+                parity.slice_agreement(one, one_ref))
+            if b < int(p["n_batches"]):
+                own = {k: p[f"out{b}_{k}"][i] for k in ours}
+                _metrics_line(f"update, main camera {cam}, port's own run",
+                              parity.slice_agreement(own, one_ref))
+    _normals_split(j, bundles)
+    pts, nrm, kept = filter_points(j["pre_points"], j["pre_normals"],
+                                   float(j["radius_sq"]), device="cpu")
+    print(f"filter on JAX's cloud: kept equal "
+          f"{np.array_equal(kept, j['post_kept'])}", flush=True)
+    _cloud_line("filter on JAX's cloud", pts, j["post_points"])
+    _cloud_line("the port's own cloud before the filter", p["pre_points"],
+                j["pre_points"])
+    _cloud_line("the port's own filtered cloud", p["post_points"],
+                j["post_points"])
+    print(f"update cameras off parity.py: {sorted(set(missed_any))}",
+          flush=True)
+
+
 if __name__ == "__main__":
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     if sys.argv[1] == "frames":
         save_frames(sys.argv[2])
+    elif sys.argv[1] == "stages":
+        stages(sys.argv[2], sys.argv[3], int(sys.argv[4]), sys.argv[5])
+    elif sys.argv[1] == "compare":
+        compare(sys.argv[2], sys.argv[3])
     else:
         print("rc", draws(sys.argv[2], sys.argv[3], int(sys.argv[4])))
