@@ -93,6 +93,14 @@ in the same alternating rounds, and must equal them bit for bit.
    bounds. Then its options the same way, two updates each:
    ``variance="rewarp"`` and ``use_farneback=True`` (K3b), ``flow_solver=
    "mg"`` (K3 warps, no K4), ``shadow_sample="bilinear"`` (K2's mode).
+   Then the bench: ``meshrecon_torch.bench.run`` in-process at 640x480,
+   K=3 on the 512-triangle problem, its default 50 reps and 3 rounds, at
+   B=1 and B=4 (counters reset before each; SETUP, BIN, K1, K2, K3 and K4
+   must launch; every number of its line finite and positive, the carry
+   finite, ``busy_share`` in (0, 1]), each line printed as ``bench B=n``;
+   then ``python -m meshrecon_torch.bench`` in a fresh process at
+   ``MESHRECON_BENCH_REPS=5``: exit 0 and exactly one JSON line on stdout
+   with the same keys.
 6. K3c (the plane sweep's masked bilinear sample) against its plain
    version at the sweep's shapes: koule-tr's cameras at 640x480, B=4 main
    cameras x K=4 sides and the K=8 bucket, depth planes' coordinate
@@ -398,6 +406,28 @@ def kernel_phases(torch, dev, res, slice_args):
         if depth_sides is None:
             depth_sides = out.reshape(B, K + 1, H, W)[:, 1:].reshape(
                 B * K, H, W)
+
+    # K1 at the bench's inputs: the 512-triangle soup of fused_problem and
+    # the cameras of each of BENCH_BATCHES (4 and 16); bitwise
+    from meshrecon_torch import bench
+    for b in BENCH_BATCHES:
+        soup, valid, mains, _, sides = bench.problem(b, K, H, W, dev)[:5]
+        bcams = torch.cat([mains[:, None], sides], 1).reshape(
+            b * (K + 1), 4, 4)
+        label = f"{b * (K + 1)}x{H}x{W}, bench soup, {int(valid.sum())} tris"
+        out = binned.render_depth_binned(bcams, soup, valid, H, W)
+        ref = rasterizer.render_depth(bcams, soup, valid, H, W)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        covered = (ref < 1.0).float().mean().item()
+        print(f"raster_tiles [{label}]: covered share {covered:.4f}")
+        if covered < 0.05:
+            raise AssertionError("the sphere is not on screen")
+        ms = _cuda_ms(torch, lambda: binned.render_depth_binned(
+            bcams, soup, valid, H, W), 10)
+        plain_ms = _cuda_ms(torch, lambda: rasterizer.render_depth(
+            bcams, soup, valid, H, W), 1, warm_up=False)
+        res.add(binned.K1, label, err, 0.0, ms, plain_ms)
 
     # K2: the side shadow maps and frames at a perturbed reprojection field
     n = B * K
@@ -1403,6 +1433,133 @@ def run_slice(torch, dev, args_np, label, updates, path, **options):
     print(f"{label} vs CPU (meshrecon_torch/parity.py bounds): "
           + ", ".join(f"{k} {v:.3e}" for k, v in metrics.items()))
     parity.check_slice({k: v[:1] for k, v in out.items()}, cpu)
+
+
+BENCH_BATCHES = (1, 4)
+BENCH_FRESH_REPS = 5
+
+
+def _bench_line_bad(torch, line):
+    """The fields of a bench line that break its check (see bench_phase)."""
+    import math
+
+    numbers = [(k, v) for k, v in line.items()
+               if isinstance(v, (int, float)) and k != "busy_share"]
+    numbers += [(f"rounds_ms[{i}]", v) for i, v in enumerate(
+        line["rounds_ms"])]
+    bad = [k for k, v in numbers if not (math.isfinite(v) and v > 0)]
+    if not 0 < line["busy_share"] <= 1:
+        bad.append("busy_share")
+    if line["device"] != torch.cuda.get_device_name(0):
+        bad.append("device")
+    if line["power_limit"] in (None, "not read"):
+        bad.append("power_limit")
+    return bad
+
+
+BENCH_PDF_METRICS = ("pdf_within_1e-3", "log_pdf_diff", "normal_len_rel")
+
+
+def _bench_parity(torch, b):
+    """One rep of the bench's update (``bench.reduced`` at a zero carry) on
+    the card, on ``bench.problem(b, ...)``, against FusedMainUpdate's plain
+    run of the same inputs on the CPU, all ``b`` main cameras, within
+    ``parity.check_slice``.
+
+    On the bench's 512-triangle soup the pdf is ill-conditioned: the plain
+    version run again on the CPU with the side cameras one ulp up (the
+    witness) misses parity.py's bounds on the three metrics of
+    BENCH_PDF_METRICS (pixels at the +-30 log-pdf clamp flip ends, and
+    where log pdf is near -17 the last bits of the reprojection move the
+    pdf by over 1e-3). The card's 4x4 camera inverse and matmul differ
+    from the CPU's in the last bits, which is such a change. So those
+    three bounds are the witness's where it is looser than parity.py's
+    (a maximum with float32 rounding's slack: at the clamp the card and
+    the witness both reach e^60 in pdf, e^20 in normal length, computed
+    apart); the other six keep parity.py's. Both sets of metrics are
+    printed."""
+    from meshrecon_torch import bench, parity, problems, state
+    from meshrecon_torch.pipeline.fused import FusedMainUpdate
+
+    args = bench.problem(b, K, H, W, "cuda")
+    eps = torch.zeros((), dtype=torch.float32, device=args[0].device)
+    _, out = bench.reduced(eps, args, H, W)
+    out = _check_update(out, f"bench B={b} update")
+    t0 = time.perf_counter()
+    args_np = list(problems.fused_problem(b, K, H, W, seed=0))
+    cpu = state.to_numpy(FusedMainUpdate(H, W)(*state.from_numpy(args_np,
+                                                                 "cpu")))
+    args_np[4] = np.nextafter(args_np[4], np.float32(np.inf))
+    witness = parity.slice_agreement(state.to_numpy(FusedMainUpdate(H, W)(
+        *state.from_numpy(args_np, "cpu"))), cpu)
+    print(f"bench B={b}: CPU plain runs took "
+          f"{time.perf_counter() - t0:.1f} s")
+    metrics = parity.slice_agreement(out, cpu)
+    for label, m in (("card vs CPU", metrics),
+                     ("witness (CPU, side cameras +1 ulp) vs CPU", witness)):
+        print(f"bench B={b} {label}: "
+              + ", ".join(f"{k} {v:.4e}" for k, v in m.items()))
+    bounds = {}
+    for name in BENCH_PDF_METRICS:
+        kind, bound = parity.SLICE_BOUNDS[name]
+        if kind == "min":
+            bounds[name] = min(bound, witness[name])
+        else:  # a float32 maximum: the clamp's range, up to its rounding
+            bounds[name] = max(bound, witness[name] * (1 + 2.0 ** -20))
+    print(f"bench B={b}: bounds from the witness {bounds}")
+    parity.check_slice(out, cpu, bounds)
+
+
+def bench_phase(torch, path):
+    """The port's bench (``meshrecon_torch.bench``) at 640x480, K=3, its
+    default reps and rounds: in-process at each of BENCH_BATCHES, counters
+    reset just before, every kernel of ``path`` launched, every number of
+    its line finite and positive, the carry finite, busy_share in (0, 1];
+    after each, one rep of its update on the card against the plain
+    versions on the CPU at the same inputs (``_bench_parity``); then ``python -m meshrecon_torch.bench`` in a fresh process at
+    ``MESHRECON_BENCH_REPS=5``: exit 0, exactly one JSON line on stdout,
+    with the in-process line's keys."""
+    import math
+    import os
+
+    from meshrecon_torch import bench
+    from meshrecon_torch.kernels import all_kernels
+
+    t_phase = time.perf_counter()
+    kernels = all_kernels()
+    for b in BENCH_BATCHES:
+        _reset(kernels)
+        t0 = time.perf_counter()
+        line = bench.run(b, K, H, W, bench.REPS, bench.ROUNDS, "cuda")
+        print(f"bench B={b}: {json.dumps(line)} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        _launched(kernels, path, f"bench B={b}")
+        carry = line.pop("carry")
+        bad = _bench_line_bad(torch, line)
+        if bad or not math.isfinite(carry):
+            raise AssertionError(f"bench B={b}: fields {bad}, carry {carry}")
+        _bench_parity(torch, b)
+
+    env = dict(os.environ, MESHRECON_BENCH_REPS=str(BENCH_FRESH_REPS))
+    env.pop("MESHRECON_BENCH_B", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "meshrecon_torch.bench"],
+                          capture_output=True, text=True, timeout=600,
+                          env=env)
+    lines = proc.stdout.splitlines()
+    print(f"bench fresh process (MESHRECON_BENCH_REPS={BENCH_FRESH_REPS}): "
+          f"rc {proc.returncode}, {time.perf_counter() - t0:.1f} s, "
+          f"stdout {proc.stdout.strip()}")
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench fresh process: rc {proc.returncode}, "
+                             f"{len(lines)} lines; stderr "
+                             f"{proc.stderr[-2000:]}")
+    fresh = json.loads(lines[0])
+    bad = _bench_line_bad(torch, fresh)
+    if list(fresh) != list(line) or fresh["reps"] != BENCH_FRESH_REPS or bad:
+        raise AssertionError(f"bench fresh process: keys {list(fresh)}, "
+                             f"fields {bad}")
+    print(f"phase bench: {time.perf_counter() - t_phase:.1f} s")
 
 
 def sweep_problem(torch, dev):
@@ -2455,6 +2612,8 @@ def main(argv=None) -> int:
              dict(shadow_sample="bilinear"))):
         run_slice(torch, dev, args_np, label, VARIANT_UPDATES, path,
                   **options)
+
+    bench_phase(torch, (*render, K2, K3, K4))
 
     sweep_args = sweep_problem(torch, dev)
     k3c_phase(torch, dev, res, state.from_numpy(sweep_args, dev))

@@ -35,8 +35,33 @@ update's options):
 - ``meshrecon_torch.problems`` -- seeded synthetic update problems
 - ``meshrecon_torch.tools``    -- the raster sweep (``python -m
   meshrecon_torch.tools.raster_sweep``)
+- ``meshrecon_torch.bench``    -- ``python -m meshrecon_torch.bench``, the
+  ``dense_depth_throughput`` line of the JAX package's ``bench.py``
+
+Each sub-package exports the names its JAX counterpart's ``__init__``
+exports (``from meshrecon_torch.flow import calculate_flow``).
 """
 
 __version__ = "0.1.0"
 
 BACKGROUND_DEPTH = 1.0  # NDC-depth sentinel for empty pixels (recon.hpp:30)
+
+
+def lazy_exports(package: str, exports: dict):
+    """A sub-package's module ``__getattr__`` for its public names (name ->
+    the submodule that defines it), each imported on first use. Imported
+    eagerly they would close cycles: ``raster.fragment`` imports
+    ``flow.tile_warp`` and ``flow.remap`` imports ``raster.fragment``; most
+    modules import ``pipeline.config``. A name that is also its
+    submodule's gives the submodule, which the import system binds to the
+    package's attribute of that name anyway."""
+    import importlib
+
+    def __getattr__(name):
+        if name not in exports:
+            raise AttributeError(
+                f"module {package!r} has no attribute {name!r}")
+        module = importlib.import_module(f"{package}.{exports[name]}")
+        return module if exports[name] == name else getattr(module, name)
+
+    return __getattr__

@@ -11,45 +11,7 @@ instead); several YAMLs reconstruct one after another.
 
 from __future__ import annotations
 
-import contextlib
-import json
-import os
 import sys
-import time
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str, device: str):
-    """torch.profiler trace of the run, written as a Chrome trace to
-    ``log_dir/trace.json`` (CPU activity, plus CUDA on a CUDA device), and
-    the device's busy share of the profiled wall time (kernels, copies and
-    memsets, overlaps merged) to ``log_dir/device_busy.json``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from meshrecon_torch.utils.profiling import device_busy
-
-    cuda = torch.device(device).type == "cuda"
-    activities = [ProfilerActivity.CPU]
-    if cuda:
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    t0 = time.perf_counter()
-    with profile(activities=activities) as prof:
-        yield
-        if cuda:
-            torch.cuda.synchronize(device)
-    wall = time.perf_counter() - t0
-    path = os.path.join(log_dir, "trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        busy, events = device_busy(json.load(f))
-    summary = {"wall_s": wall, "device_busy_s": busy,
-               "busy_share": busy / wall, "device_events": events}
-    with open(os.path.join(log_dir, "device_busy.json"), "w") as f:
-        json.dump(summary, f)
-    print(f"profile: device busy {busy:.6f} s of {wall:.6f} s profiled wall "
-          f"(share {busy / wall:.6f}; {events} kernels, copies and memsets)")
 
 
 def main(argv=None, timer=None) -> int:
@@ -58,6 +20,7 @@ def main(argv=None, timer=None) -> int:
     from meshrecon_torch.pipeline.config import configs_from_args
     from meshrecon_torch.pipeline.reconstruct import (reconstruct,
                                                       reconstruct_scenes)
+    from meshrecon_torch.utils.profiling import profile_trace
 
     configs = configs_from_args(argv)
     first = configs[0]
@@ -70,8 +33,12 @@ def main(argv=None, timer=None) -> int:
             reconstruct_scenes(configs, timer=timer)
 
     if first.profile_dir:
-        with profile_trace(first.profile_dir, first.device):
+        with profile_trace(first.profile_dir, first.device) as prof:
             run()
+        print(f"profile: device busy {prof['device_busy_s']:.6f} s of "
+              f"{prof['wall_s']:.6f} s profiled wall (share "
+              f"{prof['busy_share']:.6f}; {prof['device_events']} kernels, "
+              "copies and memsets)")
     else:
         run()
     return 0

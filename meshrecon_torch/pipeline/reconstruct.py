@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import dataclasses
 import os.path
+import sys
+import types
 
 import numpy as np
 import torch
@@ -467,3 +469,28 @@ def _refine_cloud(config, timer):
 
     hint.point_provenance = prov
     return points, normals, hint
+
+
+class _CallableModule(types.ModuleType):
+    """This module, callable as :func:`reconstruct`. ``from
+    meshrecon_torch.pipeline import reconstruct`` gives the module (the
+    import system binds a loaded submodule to its package's attribute),
+    where the JAX package's ``from meshrecon.pipeline import reconstruct``
+    gives the function (meshrecon/pipeline/__init__.py): both are called as
+    ``reconstruct(config)``, and the module's other names stay reachable.
+
+    Why the module's class is swapped: the import system sets the package's
+    attribute ``reconstruct`` to this module whenever the module loads,
+    over any function bound there before. The JAX package rebinds the
+    function after that by importing it in its ``__init__``; here that
+    import would close a cycle (nearly every module imports
+    ``pipeline.config``, whose package would then load this module and all
+    that it imports, the importer among them, half-initialized). So the
+    one object under that name must be both the module and the
+    function."""
+
+    def __call__(self, config, timer=None) -> Mesh:
+        return reconstruct(config, timer)
+
+
+sys.modules[__name__].__class__ = _CallableModule

@@ -33,6 +33,43 @@ def _edge(ax, ay, bx, by, px, py):
     return (bx - ax) * (py - ay) - (by - ay) * (px - ax)
 
 
+def clip_triangles_near(tri_clip):
+    """Clip (T, 3, 4) clip-space triangles against the plane w = _W_EPS:
+    (T, 2, 3, 4) triangles and a (T, 2) validity mask, at most two
+    triangles for each input (the quad left when one vertex is behind).
+
+    The JAX package's case order (rasterizer.py:44-101): with one vertex
+    inside, that vertex first and slot 2 a copy of slot 1; with two, the
+    outside vertex last and both slots valid; with three, the triangle
+    twice, slot 2 invalid; with none, zeros."""
+    v = tri_clip
+    inside = v[..., 3] >= _W_EPS                       # (T, 3)
+    n_in = inside.sum(dim=-1)
+    first_in = torch.argmax(inside.to(torch.int8), dim=-1)
+    first_out = torch.argmax((~inside).to(torch.int8), dim=-1)
+    k = torch.where(n_in == 1, first_in,
+                    torch.where(n_in == 2, (first_out + 1) % 3, 0))
+    idx = (k[:, None] + torch.arange(3, device=v.device)) % 3
+    a, b, c = (torch.gather(v, 1, idx[:, j, None, None].expand(-1, 1, 4))[:, 0]
+               for j in range(3))
+
+    def isect(p, q):
+        t = (_W_EPS - p[:, 3:4]) / (q[:, 3:4] - p[:, 3:4])
+        return p + (q - p) * t
+
+    one = (n_in == 1)[:, None, None]
+    two = (n_in == 2)[:, None, None]
+    slot1 = torch.stack([a, isect(a, b), isect(a, c)], dim=1)
+    ibc = isect(b, c)
+    slot1 = torch.where(two, torch.stack([a, b, ibc], dim=1),
+                        torch.where(one, slot1, v))
+    slot2 = torch.where(two, torch.stack([a, ibc, isect(a, c)], dim=1),
+                        slot1)
+    tris = torch.stack([slot1, slot2], dim=1)
+    tris = torch.where((n_in == 0)[:, None, None, None], 0.0, tris)
+    return tris, torch.stack([n_in >= 1, n_in == 2], dim=-1)
+
+
 def clip_project_planes(camera, soup, soup_valid):
     """World soup -> near-clipped, perspective-divided screen triangles as
     flat per-component planes.

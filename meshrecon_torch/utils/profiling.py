@@ -1,5 +1,6 @@
-"""Per-stage wall timers (port of meshrecon/utils/profiling.StageTimer and
-``stage_report``), and the measurement helpers of the port's tools.
+"""Per-stage wall timers (port of meshrecon/utils/profiling.StageTimer,
+``stage_report`` and ``profile_trace``), and the measurement helpers of
+the port's tools.
 
 A stage's time ends when the work that produced its value is done: for a
 value that holds a CUDA tensor the timer calls ``torch.cuda.synchronize``
@@ -9,7 +10,9 @@ on that tensor's device, so each stage reads on the card's timeline.
 from __future__ import annotations
 
 import contextlib
+import json
 import math
+import os
 import subprocess
 import time
 from collections import defaultdict
@@ -102,6 +105,42 @@ def device_busy(trace: dict) -> tuple[float, int]:
     return busy_us / 1e6, len(spans)
 
 
+@contextlib.contextmanager
+def profile_trace(log_dir: str, device="cuda", host: bool = True):
+    """torch.profiler trace of the block, written as a Chrome trace to
+    ``log_dir/trace.json`` (the host's CPU activity, on a CUDA device
+    unless ``host`` is false, and the device's), and the device's busy
+    share of the profiled wall time (kernels, copies and memsets, overlaps
+    merged) to ``log_dir/device_busy.json``. Yields that summary's dict,
+    filled in when the block ends: ``wall_s`` (the profiler's start and
+    stop, the block and a synchronize of the device), ``device_busy_s``,
+    ``busy_share``, ``device_events``. The busy
+    figures need only the device's events: without the host's the trace
+    is a third smaller and the pass less slowed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] if host or not cuda else []
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    summary = {}
+    t0 = time.perf_counter()
+    with profile(activities=activities) as prof:
+        yield summary
+        if cuda:
+            torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        busy, events = device_busy(json.load(f))
+    summary.update(wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
+                   device_events=events)
+    with open(os.path.join(log_dir, "device_busy.json"), "w") as f:
+        json.dump(summary, f)
+
+
 def best_ms(fn, reps: int, device, best_of: int = 1,
             warm_up: bool = True) -> float:
     """Milliseconds per call of ``fn``: the best of ``best_of`` passes of
@@ -129,18 +168,24 @@ def best_ms(fn, reps: int, device, best_of: int = 1,
     return best
 
 
+def nvidia_smi(device, fields: str = "name,power.limit") -> str:
+    """nvidia-smi's ``--query-gpu`` row of ``fields`` for a CUDA device,
+    or "not read"."""
+    smi = subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    row = (smi.stdout.strip().splitlines() or ["not read"])[
+        device.index or 0] if smi.returncode == 0 else "not read"
+    return row.strip()
+
+
 def device_line(device) -> str:
     """The device a tool measures on: the card's name with nvidia-smi's
     name and power limit, or the CPU with what its numbers are."""
     if device.type == "cpu":
         return "device: cpu (host-clock times; no kernel runs)"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    limit = (smi.stdout.strip().splitlines() or ["not read"])[
-        device.index or 0] if smi.returncode == 0 else "not read"
     return (f"device: {torch.cuda.get_device_name(device)} (nvidia-smi: "
-            f"{limit.strip()})")
+            f"{nvidia_smi(device)})")
 
 
 class RowTimer:

@@ -74,4 +74,5 @@ def test_stage_report_matches_jax():
 
 def test_utils_exports():
     assert set(utils.__all__) == {"StageTimer", "stage_report",
-                                  "enable_nan_checks", "checked"}
+                                  "profile_trace", "enable_nan_checks",
+                                  "checked"}

@@ -178,7 +178,8 @@ def test_port_never_imports_jax():
         "        'meshrecon_torch.tools.proj_micro',",
         "        'meshrecon_torch.tools.flow_e2e_quality',",
         "        'meshrecon_torch.tools.iters_study',",
-        "        'meshrecon_torch.tools.baseline_configs'} <= set(names), names",
+        "        'meshrecon_torch.tools.baseline_configs',",
+        "        'meshrecon_torch.bench'} <= set(names), names",
         "sys.exit(any(m in sys.modules for m in",
         "             ('jax', 'meshrecon', 'tools', '__graft_entry__')))"])
     root = Path(__file__).resolve().parent.parent
