@@ -137,11 +137,12 @@ in the same alternating rounds, and must equal them bit for bit.
    (coverage disagreement under 1%, 99% of depths within 1e-2 NDC:
    tests/test_raster.py's golden-scene bounds).
 10. The quality tools and the meshing backends, two phases, each with its
-   wall seconds. ``quality``, at 640x480 on the card: the quality harness
-   on koule-tr, koberec- and zatisi (``default``; exit code 0 by its own
-   bounds, a row a scene; SETUP, BIN, K1, K2, K3 and K4 must launch), the
-   seed study on koule at ``trim2``, seed 3 (K3c must launch; its row
-   beside the recorded one, within the default's mesh bound), error_attrib
+   wall seconds. ``quality``, on the card: the quality harness on
+   koule-tr and zatisi at 640x480 and koberec- at 320x240 (``default``;
+   exit code 0 by its own bounds, a row a scene; SETUP, BIN, K1, K2, K3
+   and K4 must launch), the seed study on koule at ``trim2``, seed 3
+   (K3c must launch; its row beside the recorded one, within the
+   default's mesh bound), error_attrib
    at seed 3 and 320x240 with ``--dump`` (sections A, B and D printed, one
    provenance code per point) and remesh_lab on that dump; each with its
    wall seconds and StageTimer split. ``meshing``: the meshing driver's
@@ -159,9 +160,9 @@ in the same alternating rounds, and must equal them bit for bit.
    JAX tools' 640x480, K=3 and reps; each prints its rows (CUDA events),
    every row a finite ms or n/a where it names the TPU package's second
    engine or a TPU layout flag, and SETUP, BIN, K1, K2, K3, K3b and K4
-   must launch. ``studies``, at 640x480: flow_e2e_quality's three
-   one-iteration flow runs (each mesh within the default's bound) and
-   iters_study at 14 and 12 sweeps, seed 3 (both meshes finite with
+   must launch. ``studies``: flow_e2e_quality's three one-iteration flow
+   runs at 640x480 (each mesh within the default's bound) and iters_study
+   at 14 and 12 sweeps, seed 3, at 320x240 (both meshes finite with
    faces, and different: the sweep count reaches the run); SETUP, BIN,
    K1, K2, K3, K3c and K4 must launch. ``config4``: baseline_configs c4,
    the 32-frame, 64-plane sweep at 1080p (ms a solve, Mpix/s, the peak
@@ -169,7 +170,20 @@ in the same alternating rounds, and must equal them bit for bit.
    the depth finite where valid, and K3c alone at the middle plane's
    inputs, 1x32x1080x1920, against its plain version (1e-4), its bound
    and ``grid_sample``.
-12. Prints one JSON line of per-kernel results, then the device line
+12. The sharding phase (``sharding_phase``, meshrecon_torch/sharding on
+   one card, shards of a mesh that names cuda:0 more than once in threads
+   of their own): the camera-sharded update on 1 and 2 shards and the
+   scene-sharded update at config 5's shape on 1 and 2, each bit for bit
+   against the unsharded update, and its scene 0 against the plain
+   versions on the CPU (parity.py's bounds, the pdf's from a witness as
+   in the bench phase); the window-sharded plane sweep (8 sides, 640x480,
+   64 depths) on 1 and 4 shards against ``plane_sweep_depth``; koule-tr
+   as two scenes through ``reconstruct_scenes`` at once (``scene_devices
+   =2``: a thread a scene) and one after another, each mesh within the
+   default's bound, walls and stage splits printed; ``baseline_configs
+   c5``; ``--mesh-devices 2`` refused on one GPU. Its figures are one JSON
+   line ``{"sharding": ...}``.
+13. Prints one JSON line of per-kernel results, then the device line
    ``{"ok": true, "device": {...}}`` last. Each kernel's ``launches`` is
    the count of the path it serves, read just after that path's run with
    the counters reset just before: SETUP, BIN, K1, K2, K3, K3c and K4 from
@@ -202,6 +216,9 @@ B, K = 4, 3
 UPDATES = 3
 VARIANT_UPDATES = 2
 SEED = 0
+# config 5 (tools/baseline_configs.py c5): scenes x main cameras, sides,
+# frame size
+C5 = dict(s=8, b=2, k=2, h=240, w=320)
 GRAPH_CALLS = 100  # calls in the CUDA graph that gives a device time
 ROUNDS = 7  # alternating rounds of a kernel against its yardstick
 DEPTH0_EVENTS = 20  # the breakdown's depth0: cameras, binning, K1
@@ -428,6 +445,31 @@ def kernel_phases(torch, dev, res, slice_args):
         plain_ms = _cuda_ms(torch, lambda: rasterizer.render_depth(
             bcams, soup, valid, H, W), 1, warm_up=False)
         res.add(binned.K1, label, err, 0.0, ms, plain_ms)
+
+    # K1 at config 5's inputs (the sharding phase's scene axis): a scene's
+    # 512-triangle soup and its 6 cameras (2 main, 2 sides each) at
+    # C5_H x C5_W; bitwise
+    soup, valid, mains, _, sides = (torch.from_numpy(np.asarray(a)).to(dev)
+                                    for a in problems.fused_problem(
+                                        C5["b"], C5["k"], C5["h"], C5["w"],
+                                        seed=0)[:5])
+    c5cams = torch.cat([mains[:, None], sides], 1).reshape(
+        C5["b"] * (C5["k"] + 1), 4, 4)
+    label = (f"{len(c5cams)}x{C5['h']}x{C5['w']}, config 5 soup, "
+             f"{int(valid.sum())} tris")
+    out = binned.render_depth_binned(c5cams, soup, valid, C5["h"], C5["w"])
+    ref = rasterizer.render_depth(c5cams, soup, valid, C5["h"], C5["w"])
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    covered = (ref < 1.0).float().mean().item()
+    print(f"raster_tiles [{label}]: covered share {covered:.4f}")
+    if covered < 0.05:
+        raise AssertionError("the sphere is not on screen")
+    ms = _cuda_ms(torch, lambda: binned.render_depth_binned(
+        c5cams, soup, valid, C5["h"], C5["w"]), 10)
+    plain_ms = _cuda_ms(torch, lambda: rasterizer.render_depth(
+        c5cams, soup, valid, C5["h"], C5["w"]), 1, warm_up=False)
+    res.add(binned.K1, label, err, 0.0, ms, plain_ms)
 
     # K2: the side shadow maps and frames at a perturbed reprojection field
     n = B * K
@@ -1460,44 +1502,39 @@ def _bench_line_bad(torch, line):
 BENCH_PDF_METRICS = ("pdf_within_1e-3", "log_pdf_diff", "normal_len_rel")
 
 
-def _bench_parity(torch, b):
-    """One rep of the bench's update (``bench.reduced`` at a zero carry) on
-    the card, on ``bench.problem(b, ...)``, against FusedMainUpdate's plain
-    run of the same inputs on the CPU, all ``b`` main cameras, within
+def _witness_parity(out, args_np, h, w, label):
+    """``out`` (numpy), the card's fused update of ``args_np`` (the ten
+    update inputs, numpy) at ``h`` x ``w``, against FusedMainUpdate's plain
+    run of the same inputs on the CPU, every main camera, within
     ``parity.check_slice``.
 
-    On the bench's 512-triangle soup the pdf is ill-conditioned: the plain
-    version run again on the CPU with the side cameras one ulp up (the
-    witness) misses parity.py's bounds on the three metrics of
-    BENCH_PDF_METRICS (pixels at the +-30 log-pdf clamp flip ends, and
-    where log pdf is near -17 the last bits of the reprojection move the
-    pdf by over 1e-3). The card's 4x4 camera inverse and matmul differ
-    from the CPU's in the last bits, which is such a change. So those
-    three bounds are the witness's where it is looser than parity.py's
-    (a maximum with float32 rounding's slack: at the clamp the card and
-    the witness both reach e^60 in pdf, e^20 in normal length, computed
-    apart); the other six keep parity.py's. Both sets of metrics are
-    printed."""
-    from meshrecon_torch import bench, parity, problems, state
+    On the 512-triangle soup of ``problems.fused_problem`` the pdf is
+    ill-conditioned: the plain version run again on the CPU with the side
+    cameras one ulp up (the witness) misses parity.py's bounds on the
+    three metrics of BENCH_PDF_METRICS (pixels at the +-30 log-pdf clamp
+    flip ends, and where log pdf is near -17 the last bits of the
+    reprojection move the pdf by over 1e-3). The card's 4x4 camera inverse
+    and matmul differ from the CPU's in the last bits, which is such a
+    change. So those three bounds are the witness's where it is looser
+    than parity.py's (a maximum with float32 rounding's slack: at the
+    clamp the card and the witness both reach e^60 in pdf, e^20 in normal
+    length, computed apart); the other six keep parity.py's. Both sets of
+    metrics are printed."""
+    from meshrecon_torch import parity, state
     from meshrecon_torch.pipeline.fused import FusedMainUpdate
 
-    args = bench.problem(b, K, H, W, "cuda")
-    eps = torch.zeros((), dtype=torch.float32, device=args[0].device)
-    _, out = bench.reduced(eps, args, H, W)
-    out = _check_update(out, f"bench B={b} update")
     t0 = time.perf_counter()
-    args_np = list(problems.fused_problem(b, K, H, W, seed=0))
-    cpu = state.to_numpy(FusedMainUpdate(H, W)(*state.from_numpy(args_np,
+    args_np = list(args_np)
+    cpu = state.to_numpy(FusedMainUpdate(h, w)(*state.from_numpy(args_np,
                                                                  "cpu")))
     args_np[4] = np.nextafter(args_np[4], np.float32(np.inf))
-    witness = parity.slice_agreement(state.to_numpy(FusedMainUpdate(H, W)(
+    witness = parity.slice_agreement(state.to_numpy(FusedMainUpdate(h, w)(
         *state.from_numpy(args_np, "cpu"))), cpu)
-    print(f"bench B={b}: CPU plain runs took "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"{label}: CPU plain runs took {time.perf_counter() - t0:.1f} s")
     metrics = parity.slice_agreement(out, cpu)
-    for label, m in (("card vs CPU", metrics),
-                     ("witness (CPU, side cameras +1 ulp) vs CPU", witness)):
-        print(f"bench B={b} {label}: "
+    for name, m in (("card vs CPU", metrics),
+                    ("witness (CPU, side cameras +1 ulp) vs CPU", witness)):
+        print(f"{label} {name}: "
               + ", ".join(f"{k} {v:.4e}" for k, v in m.items()))
     bounds = {}
     for name in BENCH_PDF_METRICS:
@@ -1506,8 +1543,22 @@ def _bench_parity(torch, b):
             bounds[name] = min(bound, witness[name])
         else:  # a float32 maximum: the clamp's range, up to its rounding
             bounds[name] = max(bound, witness[name] * (1 + 2.0 ** -20))
-    print(f"bench B={b}: bounds from the witness {bounds}")
-    parity.check_slice(out, cpu, bounds)
+    print(f"{label}: bounds from the witness {bounds}")
+    return parity.check_slice(out, cpu, bounds)
+
+
+def _bench_parity(torch, b):
+    """One rep of the bench's update (``bench.reduced`` at a zero carry) on
+    the card, on ``bench.problem(b, ...)``, against the plain run of the
+    same inputs on the CPU (``_witness_parity``)."""
+    from meshrecon_torch import bench, problems
+
+    args = bench.problem(b, K, H, W, "cuda")
+    eps = torch.zeros((), dtype=torch.float32, device=args[0].device)
+    _, out = bench.reduced(eps, args, H, W)
+    out = _check_update(out, f"bench B={b} update")
+    _witness_parity(out, problems.fused_problem(b, K, H, W, seed=0), H, W,
+                    f"bench B={b}")
 
 
 def bench_phase(torch, path):
@@ -1772,7 +1823,8 @@ def run_e2e(torch, dev, label, flags, path):
 def _check_sphere_mesh(obj, label, bounds=None):
     """The OBJ must have faces and finite vertices, and with ``bounds``
     (median, p90 of |r - R| / R) lie on koule-tr's fitted sphere within
-    them; the figures are printed either way."""
+    them; the figures are printed either way and returned (faces, med,
+    p90)."""
     from meshrecon_torch.io.obj import read_mesh
     from meshrecon_torch.io.synthetic import fit_sphere
     from meshrecon_torch.io.tracks import load_tracks
@@ -1791,6 +1843,7 @@ def _check_sphere_mesh(obj, label, bounds=None):
     if bounds and not (med <= bound_med and p90 <= bound_p90):
         raise AssertionError(f"{label}: mesh off the sphere (median {med}, "
                              f"p90 {p90})")
+    return dict(faces=len(mesh.faces), med=med, p90=p90)
 
 
 OUT_DIR = Path("build") / "chip_smoke"  # git-ignored
@@ -2118,8 +2171,10 @@ def drivers_phase(torch, dev, flow_path, raster_path):
     print(f"phase drivers: {time.perf_counter() - t_phase:.1f} s")
 
 
-# the harness's scenes, all three at 640x480
-QUALITY_SCENES = "koule-tr,koberec-,zatisi"
+# the harness's runs: (scenes, scale). koberec- at 320x240 (at 640x480 it
+# took 119.0 s of the harness's 193.99 on an H100 80GB HBM3 at 700 W), the
+# other two at 640x480
+QUALITY_RUNS = (("koule-tr,zatisi", 1), ("koberec-", 2))
 # the seed study's koule row at trim2, seed 3, 640x480 as PERF.md records
 # it from an earlier run on an H100 80GB HBM3 at 700 W (median, p90 of
 # |r - R| / R)
@@ -2163,10 +2218,11 @@ def _tool(torch, label, main, argv, timer=None):
 
 
 def quality_phase(torch, path, sweep_path):
-    """The quality tools on the card: the harness on koule-tr, koberec-
-    and zatisi at 640x480 by its own bounds (SETUP, BIN, K1, K2, K3, K4
-    must launch), the seed study on Queue C's inputs (K3c must launch),
-    error_attrib with a dump at 320x240 and remesh_lab on that dump."""
+    """The quality tools on the card: the harness on koule-tr and zatisi
+    at 640x480 and on koberec- at 320x240 (QUALITY_RUNS), by its own
+    bounds (SETUP, BIN, K1, K2, K3, K4 must launch in each run), the
+    seed study on Queue C's inputs (K3c must launch), error_attrib with a
+    dump at 320x240 and remesh_lab on that dump."""
     import re
 
     from meshrecon_torch.kernels import all_kernels
@@ -2178,17 +2234,18 @@ def quality_phase(torch, path, sweep_path):
     kernels = all_kernels()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
 
-    _reset(kernels)
-    rc, text = _tool(torch, "quality_harness", quality_harness.main, [
-        "--scale", "1", "--scenes", QUALITY_SCENES, "--configs", "default",
-        "--device", "cuda"], StageTimer())
-    rows = re.findall(r"^default\s+\d+\s+[\d.]+\s+[\d.]+\s+[\d.]+$",
-                      text, re.M)
-    _launched(kernels, path, "quality_harness")
-    scenes = QUALITY_SCENES.count(",") + 1
-    if rc != 0 or len(rows) != scenes:
-        raise AssertionError(f"quality_harness: rc {rc}, {len(rows)} rows "
-                             f"({scenes} expected)")
+    for scenes, scale in QUALITY_RUNS:
+        _reset(kernels)
+        rc, text = _tool(torch, "quality_harness", quality_harness.main, [
+            "--scale", str(scale), "--scenes", scenes, "--configs",
+            "default", "--device", "cuda"], StageTimer())
+        rows = re.findall(
+            r"^default\s+\d+\s+[\d.]+\s+[\d.]+\s+[\d.]+$", text, re.M)
+        _launched(kernels, path, f"quality_harness {scenes}")
+        count = scenes.count(",") + 1
+        if rc != 0 or len(rows) != count:
+            raise AssertionError(f"quality_harness {scenes}: rc {rc}, "
+                                 f"{len(rows)} rows ({count} expected)")
 
     _reset(kernels)
     rc, text = _tool(torch, "seed_study", seed_study.main, [
@@ -2349,6 +2406,9 @@ MICRO_NA = {"perf_breakdown": {"variational_flow(xla)"},
             "flow_micro": {"flowK3 xla engine lv3", "flowK3 prod minpx5e5"},
             "proj_micro": {"proj1 real depth xla"}}
 STUDY_ITERS = "14,12"  # the solver's default, and 12
+# iters_study's scale: 320x240 (at 640x480 its two runs took 68.8 s of the
+# studies phase's 111.9 on an H100 80GB HBM3 at 700 W)
+STUDY_SCALE = 2
 C4 = dict(h=1080, w=1920, k=32, d=64)  # BASELINE.json configuration 4
 
 
@@ -2386,11 +2446,11 @@ def micro_phase(torch, path):
 
 
 def studies_phase(torch, path):
-    """The study tools at 640x480 on the card: flow_e2e_quality's three
-    one-iteration flow runs, each mesh within the default's bound, and
-    iters_study at 14 and 12 sweeps (seed 3), whose two meshes must
-    differ: the sweep count reaches the run. Every kernel of ``path``
-    must launch."""
+    """The study tools on the card: flow_e2e_quality's three
+    one-iteration flow runs at 640x480, each mesh within the default's
+    bound, and iters_study at 14 and 12 sweeps (seed 3) at 1/STUDY_SCALE
+    size, whose two meshes must differ: the sweep count reaches the run.
+    Every kernel of ``path`` must launch."""
     import tempfile
     from unittest import mock
 
@@ -2421,8 +2481,8 @@ def studies_phase(torch, path):
         timer = StageTimer()
         t0 = time.perf_counter()
         rows = iters_study.main(["--iters", STUDY_ITERS, "--seeds", "3",
-                                 "--scale", "1", "--device", "cuda"],
-                                timer=timer)
+                                 "--scale", str(STUDY_SCALE), "--device",
+                                 "cuda"], timer=timer)
         print(f"iters_study --iters {STUDY_ITERS} --seeds 3: "
               f"{time.perf_counter() - t0:.1f} s; stages "
               "(card-synchronized wall seconds):")
@@ -2514,6 +2574,248 @@ def config4_phase(torch, dev, res):
     res.add(tile_warp.K3C, label, err, 1e-4, ms, plain_ms,
             work=_k3c_work(px, share), library_ms=lib_ms)
     print(f"phase config4: {time.perf_counter() - t_phase:.1f} s")
+
+
+SHARD_CAMERAS = (1, 2)  # camera-axis shards of cuda:0 (sharding phase)
+SHARD_WINDOWS = (1, 4)  # window-axis shards of cuda:0
+SHARD_SWEEP_K = 8
+SHARD_SCENE_SEEDS = (3, 4)  # the two scenes: frames and draws
+# at once against one-after-another meshes: faces (relative), median and
+# p90 of |r - R| / R. On the card the Poisson splat's index_put_ adds in
+# no fixed order, so two runs of one scene differ in the last bits from
+# iteration 2 on; the bounds are the port's two-iteration closeness bounds
+# (tests/test_torch_pipeline.py::test_end_to_end_hybrid_two_iterations).
+SHARD_SCENE_CLOSE = (0.1, 0.02, 0.05)
+
+
+def _equal_outputs(torch, ours, ref, keys):
+    return all(torch.equal(ours[k], ref[k]) for k in keys)
+
+
+def sharding_phase(torch, dev, args_np, render, k2_k4, k3c):
+    """The sharded paths on one card (meshrecon_torch/sharding), each shard
+    of a mesh that names cuda:0 more than once running in a thread of its own:
+    ``sharded_fused_update`` at 640x480, K=3, B=4 on ``[cuda:0] * n`` (n in
+    SHARD_CAMERAS) against ``fused_main_update_batched`` on the card, bit
+    for bit (tests/test_torch_sharding.py: the camera shards run the plain
+    code on independent items); ``sharded_multi_scene_fused`` at config 5's
+    shape (C5: 8 scenes x 2 cameras, 240x320, K=2) on one and two shards
+    against a per-scene loop, bit for bit, and its scene 0 against the
+    plain versions on the CPU (``_witness_parity``);
+    ``sharded_plane_sweep`` with 8 sides at 640x480 and 64 depths on
+    ``[cuda:0] * n`` (n in SHARD_WINDOWS) against ``plane_sweep_depth`` at
+    the CPU test's bounds (depth atol 1e-5; cost rtol 1e-5, atol 1e-4;
+    valid equal); each sharded call timed twice (the first starts its
+    threads); koule-tr as two synthetic scenes (each the CLI's at its seed
+    of SHARD_SCENE_SEEDS: its frames and camera draw; 640x480, -n 2,
+    hybrid) through ``reconstruct_scenes`` with ``scene_devices=2`` (both
+    scenes at once, a thread each, on the one device here) and 1 (one after
+    another): each mesh within the default's sphere bound, each mesh of the
+    first run close to the other run's (SHARD_SCENE_CLOSE; bitwise equality
+    printed), both walls and stage splits printed (the first run's stage
+    totals add the two threads' overlapping times); ``baseline_configs
+    c5``; and the CLI's ``--mesh-devices 2`` refused with fewer GPUs. Every
+    kernel of each path must launch. Prints one JSON line ``{"sharding":
+    ...}``."""
+    from meshrecon_torch import problems, state
+    from meshrecon_torch.depth.plane_sweep import plane_sweep_depth
+    from meshrecon_torch.io.obj import read_mesh
+    from meshrecon_torch.kernels import all_kernels
+    from meshrecon_torch.pipeline.config import (config_from_args,
+                                                 configs_from_args)
+    from meshrecon_torch.pipeline.fused import fused_main_update_batched
+    from meshrecon_torch.pipeline.reconstruct import reconstruct_scenes
+    from meshrecon_torch.sharding import (make_device_mesh, make_scene_mesh,
+                                          make_window_mesh,
+                                          sharded_fused_update,
+                                          sharded_multi_scene_fused,
+                                          sharded_plane_sweep)
+    from meshrecon_torch.tools import baseline_configs
+    from meshrecon_torch.utils.profiling import StageTimer
+
+    t_phase = time.perf_counter()
+    kernels = all_kernels()
+    keys = ("point4", "normals", "pdf", "valid", "depth")
+    summary = {}
+
+    def twice(step, *call_args):
+        """The output of two calls and each call's ms, the counters
+        reset before the first."""
+        _reset(kernels)
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*call_args)
+            torch.cuda.synchronize()
+            ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+        return out, ms
+
+    # the camera axis
+    args = state.from_numpy(args_np, dev)
+    ref = fused_main_update_batched(*args, H, W)
+    for n in SHARD_CAMERAS:
+        step = sharded_fused_update(make_device_mesh(n, 1, devices=[dev] * n),
+                                    H, W)
+        out, ms = twice(step, *args)
+        _launched(kernels, (*render, *k2_k4), f"sharded_fused_update n={n}")
+        equal = _equal_outputs(torch, out, ref, keys)
+        print(f"sharded_fused_update [{n} x {dev}] B={B} K={K} {W}x{H}: "
+              f"ms {ms}, bitwise equal to the unsharded update: {equal}")
+        summary[f"fused_camera_{n}"] = dict(ms=ms, bitwise=equal)
+        if not equal:
+            raise AssertionError(f"sharded_fused_update n={n} differs from "
+                                 "fused_main_update_batched")
+    del ref, out
+
+    # the scene axis at config 5's shape
+    c5 = C5
+    one = problems.fused_problem(c5["b"], c5["k"], c5["h"], c5["w"], seed=0)
+    per_scene = [state.from_numpy(one, dev) for _ in range(c5["s"])]
+    loop = [fused_main_update_batched(*a, c5["h"], c5["w"])
+            for a in per_scene]
+    stacked = [torch.stack(list(a)) for a in zip(*per_scene)]
+    for n in (1, 2):
+        step = sharded_multi_scene_fused(
+            make_scene_mesh(n, 1, 1, devices=[dev] * n), c5["h"], c5["w"])
+        _reset(kernels)
+        out = step(*stacked)
+        torch.cuda.synchronize()
+        _launched(kernels, (*render, *k2_k4),
+                  f"sharded_multi_scene_fused n={n}")
+        equal = all(_equal_outputs(torch, {k: v[i] for k, v in out.items()},
+                                   loop[i], keys) for i in range(c5["s"]))
+        print(f"sharded_multi_scene_fused [{n} x {dev}] {c5['s']} scenes x "
+              f"{c5['b']} cams {c5['w']}x{c5['h']} K={c5['k']}: bitwise "
+              f"equal to a per-scene loop: {equal}")
+        summary[f"multi_scene_{n}"] = dict(bitwise=equal)
+        if not equal:
+            raise AssertionError(f"sharded_multi_scene_fused n={n} differs "
+                                 "from the per-scene loop")
+    # scene 0 against the plain versions on the CPU (the loop above holds
+    # the card against itself)
+    scene0 = _check_update({k: v[0] for k, v in out.items()},
+                           "sharded_multi_scene_fused scene 0")
+    metrics = _witness_parity(scene0, one, c5["h"], c5["w"],
+                              "sharded_multi_scene_fused scene 0")
+    summary["multi_scene_cpu_parity"] = metrics
+    del loop, stacked, per_scene, out
+
+    # the window axis
+    rng = np.random.default_rng(4)
+    main = problems.make_camera(eye=(0, 0, 0), near=1.0, far=30.0)
+    cams = np.stack([problems.make_camera(
+        eye=(0.5 + 0.2 * j, 0.3 * (j % 3), 0), near=1.0, far=30.0)
+        for j in range(SHARD_SWEEP_K)]).astype(np.float32)
+    fm = rng.uniform(0, 255, size=(H, W)).astype(np.float32)
+    fs = (fm[None] + rng.normal(scale=5.0, size=(SHARD_SWEEP_K, H, W))
+          ).astype(np.float32)
+    sweep_in = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+                (fm, fs, main.astype(np.float32), cams,
+                 np.ones(SHARD_SWEEP_K, bool))]
+    ref, ms = twice(lambda *a: plane_sweep_depth(
+        *a, -0.8, 0.6, num_depths=SWEEP_DEPTHS), *sweep_in)
+    print(f"plane_sweep_depth K={SHARD_SWEEP_K} {W}x{H} {SWEEP_DEPTHS} "
+          f"depths: ms {ms}")
+    summary["sweep_unsharded_ms"] = ms
+    for n in SHARD_WINDOWS:
+        step = sharded_plane_sweep(make_window_mesh(n, devices=[dev] * n),
+                                   num_depths=SWEEP_DEPTHS)
+        out, ms = twice(step, *sweep_in, -0.8, 0.6)
+        launches = _launched(kernels, k3c, f"sharded_plane_sweep n={n}")
+        d_err = (out["depth"] - ref["depth"]).abs().max().item()
+        c_excess = ((out["cost"] - ref["cost"]).abs()
+                    - (1e-4 + 1e-5 * ref["cost"].abs())).max().item()
+        valid_eq = torch.equal(out["valid"], ref["valid"])
+        share = out["valid"].float().mean().item()
+        print(f"sharded_plane_sweep [{n} x {dev}] K={SHARD_SWEEP_K} "
+              f"{W}x{H} {SWEEP_DEPTHS} depths: ms {ms}, K3c launches "
+              f"{launches[k3c[0].name]}, valid share {share:.4f}, depth "
+              f"max err {d_err:.3e} (bound 1e-5), cost over its bound by "
+              f"{c_excess:.3e} (<= 0), valid equal {valid_eq}")
+        summary[f"sweep_window_{n}"] = dict(
+            ms=ms, depth_err=d_err, cost_excess=c_excess, valid_equal=valid_eq)
+        if not (d_err <= 1e-5 and c_excess <= 0 and valid_eq and share > 0.05):
+            raise AssertionError(f"sharded_plane_sweep n={n} off the "
+                                 "unsharded sweep")
+    del ref, out, sweep_in
+
+    # koule-tr as two scenes: at once and one after another
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    walls, meshes = {}, {}
+    for scene_devices in (2, 1):
+        name = f"sharding_sd{scene_devices}_scene{{}}.obj"
+        configs = [config_from_args(
+            [TRACK, "--synthetic", "sphere", "--seed", str(seed), "-o",
+             str(OUT_DIR / name.format(i)), "--device", "cuda",
+             "--scene-devices", str(scene_devices)])
+            for i, seed in enumerate(SHARD_SCENE_SEEDS)]
+        timer = StageTimer()
+        _reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reconstruct_scenes(configs, scene_devices=configs[0].scene_devices,
+                           timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        label = f"scenes scene_devices={scene_devices}"
+        _launched(kernels, (*render, *k2_k4, *k3c), label)
+        meshes[scene_devices] = [
+            (read_mesh(str(OUT_DIR / name.format(i))),
+             _check_sphere_mesh(OUT_DIR / name.format(i),
+                                f"{label} scene {i} (seed {seed})",
+                                E2E_BOUNDS["default"]))
+            for i, seed in enumerate(SHARD_SCENE_SEEDS)]
+        print(f"{label}: wall {wall:.2f} s; stages (card-synchronized wall "
+              "seconds):")
+        for line in timer.report().splitlines():
+            print(f"  {line}")
+        walls[scene_devices] = wall
+        summary[f"scenes_{scene_devices}"] = dict(
+            wall_s=wall, meshes=[m[1] for m in meshes[scene_devices]],
+            stages={k: round(v, 3) for k, v in timer.times.items()})
+    print(f"scenes: at-once wall {walls[2]:.2f} s against {walls[1]:.2f} s "
+          f"one after another ({walls[2] / walls[1]:.3f})")
+    faces_rel, med_abs, p90_abs = SHARD_SCENE_CLOSE
+    for i, ((a, fa), (b, fb)) in enumerate(zip(meshes[2], meshes[1])):
+        same = (np.array_equal(a.vertices, b.vertices)
+                and np.array_equal(a.faces, b.faces))
+        print(f"scenes scene {i}: at once against one after another: faces "
+              f"{fa['faces']} / {fb['faces']}, median {fa['med']:.4f} / "
+              f"{fb['med']:.4f}, p90 {fa['p90']:.4f} / {fb['p90']:.4f}; "
+              f"bitwise equal {same}")
+        summary[f"scenes_bitwise_{i}"] = same
+        if not (abs(fa["faces"] - fb["faces"]) <= faces_rel * fb["faces"]
+                and abs(fa["med"] - fb["med"]) <= med_abs
+                and abs(fa["p90"] - fb["p90"]) <= p90_abs):
+            raise AssertionError(f"scenes scene {i}: the at-once mesh is "
+                                 "off the one made one after another")
+
+    # baseline_configs c5, as a user runs it
+    _reset(kernels)
+    res_c5 = baseline_configs.main(["c5"])
+    print(f"config5: {res_c5['ms']:.3f} ms a call, {res_c5['mpix']:.3f} "
+          f"Mpix/s aggregate on {res_c5['n_dev']} device(s)")
+    summary["config5"] = dict(ms=res_c5["ms"], mpix=res_c5["mpix"],
+                              n_dev=res_c5["n_dev"])
+
+    # --mesh-devices above the GPU count is refused before any work
+    count = torch.cuda.device_count()
+    if count < 2:
+        try:
+            configs_from_args([TRACK, "--synthetic", "sphere", "--device",
+                               "cuda", "--mesh-devices", "2"])
+        except ValueError as exc:
+            refusal = str(exc)
+        else:
+            raise AssertionError("--mesh-devices 2 on one GPU was accepted")
+        if refusal != f"need 2 devices, have {count}":
+            raise AssertionError(f"--mesh-devices 2: {refusal!r}")
+        print(f"--mesh-devices 2 on {count} GPU: ValueError {refusal!r}")
+        summary["mesh_devices_2"] = refusal
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"sharding": summary}))
+    print(f"phase sharding: {summary['phase_s']:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -2631,6 +2933,7 @@ def main(argv=None) -> int:
     micro_phase(torch, (*render, K2, K3, K3B, K4))
     studies_phase(torch, (*render, K2, K3, K3C, K4))
     config4_phase(torch, dev, res)
+    sharding_phase(torch, dev, args_np, render, (K2, K3, K4), (K3C,))
 
     # each kernel's launches on the path it serves
     path_launches = {k.name: default[k.name]

@@ -6,7 +6,8 @@
     python -m meshrecon_torch.cli tracks/koule-tr.yaml --synthetic sphere
 
 Each YAML's clip is decoded (``--synthetic`` renders fixture frames
-instead); several YAMLs reconstruct one after another.
+instead); several YAMLs reconstruct one after another, or at once, a
+thread each, with ``--scene-devices`` above 1.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ def main(argv=None, timer=None) -> int:
         if len(configs) == 1:
             reconstruct(first, timer=timer)
         else:
-            reconstruct_scenes(configs, timer=timer)
+            reconstruct_scenes(configs, scene_devices=first.scene_devices,
+                               timer=timer)
 
     if first.profile_dir:
         with profile_trace(first.profile_dir, first.device) as prof:

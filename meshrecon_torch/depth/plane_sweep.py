@@ -9,8 +9,9 @@ resampled onto the main view (K3c,
 absolute difference, summed over the sides and box-filtered, and a running
 (best, previous, next) cost gives a parabolic sub-plane refinement.
 The JAX ``lax.scan`` over planes is a Python loop here; memory stays
-O(B*K*H*W) for any D. The side-sharded ``axis_name`` form waits for the
-sharding slice (ROADMAP Queue A, A12).
+O(B*K*H*W) for any D. JAX's ``axis_name`` form (the side window sharded
+over devices, ``psum`` of the evidence) is :func:`sweep_windows` given the
+window's shards, which ``sharding.meshes.sharded_plane_sweep`` makes.
 """
 
 from __future__ import annotations
@@ -37,44 +38,53 @@ def _box3(img):
     ) / 9.0
 
 
-def plane_sweep_depth_batched(frames_main, frames_side, cam_mains, cams_side,
-                              side_valid, z_min, z_max, num_depths: int = 64,
-                              side_weight=None):
-    """Plane sweep for B main cameras.
-
-    frames_main: (B, H, W); frames_side: (B, K, H, W); cam_mains: (B, 4, 4);
-    cams_side: (B, K, 4, 4); side_valid: (B, K) bool; z_min, z_max: (B,)
-    NDC sweep ranges; side_weight: optional (B, K, H, W) vote weights,
-    constant across planes. Returns dict of (B, H, W) tensors: ``depth``
-    (refined NDC depth, BACKGROUND_DEPTH where invalid), ``cost`` (best
-    matching cost) and ``valid`` (enough side views saw the pixel).
-    """
-    fm = frames_main.to(torch.float32)
-    fs = frames_side.to(torch.float32).contiguous()
-    b, h, w = fm.shape
-    dev = fm.device
-    main_inv = torch.linalg.inv(cam_mains.to(torch.float32))
-    cm = cams_side.to(torch.float32) @ main_inv[:, None]  # (B, K, 4, 4)
-    vmask = side_valid.to(torch.float32)
-    swt = None if side_weight is None else side_weight.to(torch.float32)
-
-    cols, rows = pixel_grid(h, w, dev)
-    x = cols[None, None, None, :]
-    y = rows[None, None, :, None]
-
+def sweep_planes(z_min, z_max, num_depths: int, device):
+    """(z_min (B,), z_max (B,), zs (D, B)): the sweep ranges and the NDC
+    depths of the ``num_depths`` planes, float32 on ``device``."""
     z_min = torch.as_tensor(z_min, dtype=torch.float32,
-                            device=dev).reshape(b)
+                            device=device).reshape(-1)
     z_max = torch.as_tensor(z_max, dtype=torch.float32,
-                            device=dev).reshape(b)
+                            device=device).reshape(-1)
     ts = torch.from_numpy(
-        np.linspace(0.0, 1.0, num_depths).astype(np.float32)).to(dev)
-    zs = z_min[None, :] + ts[:, None] * (z_max - z_min)[None, :]  # (D, B)
+        np.linspace(0.0, 1.0, num_depths).astype(np.float32)).to(device)
+    zs = z_min[None, :] + ts[:, None] * (z_max - z_min)[None, :]
+    return z_min, z_max, zs
 
-    def cost_at(z):  # z: (B,)
-        zb = z[:, None, None, None]
+
+class SweepWindow:
+    """A window of side frames for B main cameras, on the frames' device:
+    the whole window, or one device's shard of it. ``evidence(d)`` is the
+    photometric evidence of plane ``d``, the per-pixel sums over the
+    window's sides of the weighted absolute differences (``num``) and of
+    the weights (``den``), (B, H, W) each; ``n_sides`` (B,) counts its
+    valid sides. Arguments as :func:`plane_sweep_depth_batched`'s; ``zs``
+    (D, B) are the planes' NDC depths (:func:`sweep_planes`)."""
+
+    def __init__(self, frames_main, frames_side, cam_mains, cams_side,
+                 side_valid, zs, side_weight=None):
+        self.fm = frames_main.to(torch.float32)
+        self.fs = frames_side.to(torch.float32).contiguous()
+        h, w = self.fm.shape[1:]
+        dev = self.fm.device
+        main_inv = torch.linalg.inv(cam_mains.to(torch.float32))
+        # (B, K, 4, 4)
+        self.cm = cams_side.to(torch.float32) @ main_inv[:, None]
+        self.vmask = side_valid.to(torch.float32)
+        self.swt = (None if side_weight is None
+                    else side_weight.to(torch.float32))
+        self.n_sides = self.vmask.sum(dim=1)
+        cols, rows = pixel_grid(h, w, dev)
+        self.x = cols[None, None, None, :]
+        self.y = rows[None, None, :, None]
+        self.zs = zs.to(dev)
+
+    def evidence(self, d: int):
+        """(num, den) of plane ``d``, each (B, H, W)."""
+        h, w = self.fm.shape[1:]
+        x, y, zb = self.x, self.y, self.zs[d][:, None, None, None]
 
         def apply_cm(row):
-            c = cm[:, :, row, :, None, None]
+            c = self.cm[:, :, row, :, None, None]
             return c[:, :, 0] * x + c[:, :, 1] * y + c[:, :, 2] * zb \
                 + c[:, :, 3]
 
@@ -86,14 +96,33 @@ def plane_sweep_depth_batched(frames_main, frames_side, cam_mains, cams_side,
         ok &= (sx.abs() < 1.0) & (sy.abs() < 1.0)
         scol = (sx + 1.0) * 0.5 * w
         srow = (1.0 - sy) * 0.5 * h
-        samp = tile_warp_sample_batched(fs, scol.contiguous(),
+        samp = tile_warp_sample_batched(self.fs, scol.contiguous(),
                                         srow.contiguous(), ok.contiguous())
-        diff = (samp - fm[:, None]).abs()
-        wgt = ok.to(torch.float32) * vmask[:, :, None, None]
-        if swt is not None:
-            wgt = wgt * swt
-        num = (diff * wgt).sum(dim=1)
-        den = wgt.sum(dim=1)
+        diff = (samp - self.fm[:, None]).abs()
+        wgt = ok.to(torch.float32) * self.vmask[:, :, None, None]
+        if self.swt is not None:
+            wgt = wgt * self.swt
+        return (diff * wgt).sum(dim=1), wgt.sum(dim=1)
+
+
+def sweep_windows(windows, z_min, z_max, num_depths: int):
+    """The plane sweep of :func:`plane_sweep_depth_batched` over a window
+    given as one :class:`SweepWindow` or as its shards in order (JAX's
+    ``axis_name`` form): at each plane the shards' evidence, and once
+    their side counts, are summed on the first shard's device in shard
+    order (JAX's ``psum``), so the cost's last bits do not change from run
+    to run. z_min, z_max: (B,) on that device. Returns its dict."""
+    first = windows[0]
+    b, h, w = first.fm.shape
+    dev = first.fm.device
+    zs = first.zs
+
+    def cost_at(d):
+        num, den = first.evidence(d)
+        for win in windows[1:]:
+            more_num, more_den = win.evidence(d)
+            num = num + more_num.to(dev)
+            den = den + more_den.to(dev)
         cost = num / den.clamp(min=1e-6)
         return _box3(cost), den
 
@@ -104,7 +133,7 @@ def plane_sweep_depth_batched(frames_main, frames_side, cam_mains, cams_side,
     support = torch.zeros((b, h, w), dtype=torch.float32, device=dev)
     for d in range(num_depths):
         z = zs[d]
-        c, sup = cost_at(z)
+        c, sup = cost_at(d)
         is_best = c < best_c
         best_prev = torch.where(is_best, last_c, best_prev)
         best_next = torch.where(pending & ~is_best, c, best_next)
@@ -123,11 +152,32 @@ def plane_sweep_depth_batched(frames_main, frames_side, cam_mains, cams_side,
 
     # two side views where the window has two; a single-side bundle is
     # classic two-view stereo (the reference's flow path needs only one)
-    n_sides = vmask.sum(dim=1)
+    n_sides = first.n_sides
+    for win in windows[1:]:
+        n_sides = n_sides + win.n_sides.to(dev)
     need = n_sides.clamp(min=1.0).clamp(max=2.0)[:, None, None]
     valid = support >= need
     depth = torch.where(valid, depth, BACKGROUND_DEPTH)
     return {"depth": depth, "cost": best_c, "valid": valid}
+
+
+def plane_sweep_depth_batched(frames_main, frames_side, cam_mains, cams_side,
+                              side_valid, z_min, z_max, num_depths: int = 64,
+                              side_weight=None):
+    """Plane sweep for B main cameras.
+
+    frames_main: (B, H, W); frames_side: (B, K, H, W); cam_mains: (B, 4, 4);
+    cams_side: (B, K, 4, 4); side_valid: (B, K) bool; z_min, z_max: (B,)
+    NDC sweep ranges; side_weight: optional (B, K, H, W) vote weights,
+    constant across planes. Returns dict of (B, H, W) tensors: ``depth``
+    (refined NDC depth, BACKGROUND_DEPTH where invalid), ``cost`` (best
+    matching cost) and ``valid`` (enough side views saw the pixel).
+    """
+    z_min, z_max, zs = sweep_planes(z_min, z_max, num_depths,
+                                    frames_main.device)
+    window = SweepWindow(frames_main, frames_side, cam_mains, cams_side,
+                         side_valid, zs, side_weight)
+    return sweep_windows([window], z_min, z_max, num_depths)
 
 
 def plane_sweep_depth(frame_main, frames_side, cam_main, cams_side,

@@ -37,6 +37,7 @@ import os
 import shutil
 import subprocess
 import sysconfig
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -159,7 +160,29 @@ def _run_all(cmds: list[list[str]]) -> str:
     return log
 
 
-@functools.lru_cache(maxsize=None)
+def once(fn):
+    """``fn()``, computed once per process: threads that call it together
+    wait for one result under a lock (``functools.lru_cache`` alone lets
+    each compute). ``cache_clear`` forgets the result."""
+    lock = threading.Lock()
+    cached = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def call():
+        with lock:
+            return cached()
+
+    call.cache_clear = cached.cache_clear
+    return call
+
+
+def tmp_path(path: Path) -> Path:
+    """A temporary name beside ``path``, unique to this process and
+    thread, to build into before ``os.replace``."""
+    return path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+
+
+@once
 def library() -> Library:
     """Build (if needed) and load the kernel library; cached per process."""
     digest = hashlib.sha256()
@@ -173,7 +196,7 @@ def library() -> Library:
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp = tmp_path(path)
         t0 = time.perf_counter()
         # one nvcc per kernel source and g++ for the binding, all started
         # together, then one link
@@ -209,6 +232,9 @@ def library() -> Library:
 
 
 _REGISTRY: list["Kernel"] = []
+# guards the launch counts: shards launch from threads of their own
+# (sharding/meshes.py), and ``+=`` on an attribute is not atomic
+_COUNT_LOCK = threading.Lock()
 
 # The binding's launch hooks, torch's own C functions (a CPU-only build of
 # torch lacks the first two, and launches nothing): the index of the
@@ -265,7 +291,8 @@ class Kernel:
             raise RuntimeError(f"{self.name} ({self.entry}): CUDA error "
                                f"{code}: {text}")
         if not capturing:
-            self.launches += 1
+            with _COUNT_LOCK:
+                self.launches += 1
 
 
 def all_kernels() -> list[Kernel]:

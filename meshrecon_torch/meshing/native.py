@@ -12,7 +12,6 @@ numpy fallback for these stages.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -21,7 +20,7 @@ from pathlib import Path
 
 import numpy as np
 
-from meshrecon_torch.kernels._build import BUILD_DIR
+from meshrecon_torch.kernels._build import BUILD_DIR, once, tmp_path
 
 SOURCE = (Path(__file__).resolve().parent.parent.parent / "meshrecon"
           / "meshing" / "native" / "meshing_native.cpp")
@@ -41,7 +40,7 @@ _SIGNATURES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
+@once
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the library; cached per process."""
     if not SOURCE.exists():
@@ -55,7 +54,7 @@ def library() -> ctypes.CDLL:
             raise RuntimeError("g++ not found: the native meshing library is "
                                "built from source on first use")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp = tmp_path(path)
         cmd = [gxx, *GXX_FLAGS, str(SOURCE), "-o", str(tmp)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -10,8 +10,9 @@ device. Several input YAMLs make one Config each, decoded lazily. The TPU
 layout knobs of the JAX package (``--raster-tile-h/w``,
 ``--hs-fused-min-px``, ``--warp-narrow``, ``--warp-narrow-cols``,
 ``--warp-guard-cols``) have no counterpart here and are not accepted;
-``--mesh-devices`` and ``--scene-devices`` above 1 raise
-NotImplementedError (ROADMAP Queue A, A12); no flag is ignored. The flow
+no flag is ignored. ``--mesh-devices`` and ``--scene-devices`` shard the
+main cameras and the scenes over torch devices (``sharding/``): on the
+CPU over the one CPU device repeated, on CUDA over distinct GPUs. The flow
 options that the JAX package sets as module globals
 (``apply_kernel_knobs``: ``--variance-mode``, ``--variance-taps``,
 ``--shadow-sample``) are fields of :class:`Config` here, handed to the
@@ -79,6 +80,11 @@ class Config:
     checkpoint_dir: Optional[str] = None
     profile_dir: Optional[str] = None
     resume: bool = False
+    # main cameras of a flow iteration sharded over this many devices;
+    # several scenes (or ensemble seeds) at once, a thread each, over up
+    # to this many
+    mesh_devices: int = 1
+    scene_devices: int = 1
     # refine the cloud under each of these camera-draw seeds and mesh the
     # union once; empty: one draw under ``seed``
     ensemble_seeds: tuple = ()
@@ -228,8 +234,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-render-faces", type=int, default=65536)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--mesh-devices", type=int, default=1)
-    p.add_argument("--scene-devices", type=int, default=1)
+    p.add_argument("--mesh-devices", type=int, default=1,
+                   help="shard main cameras across this many torch devices "
+                        "(distinct GPUs; with --device cpu the CPU repeated)")
+    p.add_argument("--scene-devices", type=int, default=1,
+                   help="with several input YAMLs (or ensemble seeds): run "
+                        "scenes at once, one thread each, spread over up to "
+                        "this many torch devices")
     p.add_argument("--profile", default=None, metavar="LOG_DIR",
                    help="write a torch.profiler trace of the run to LOG_DIR")
     p.add_argument("--flow-iters", type=int, default=0)
@@ -242,14 +253,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shadow-sample", choices=("nearest", "bilinear"),
                    default="")
     return p
-
-
-def _unported(args) -> list[str]:
-    """The flags given whose path the port does not have, each with its
-    ROADMAP item."""
-    if args.mesh_devices > 1 or args.scene_devices > 1:
-        return ["--mesh-devices/--scene-devices > 1 (ROADMAP Queue A, A12)"]
-    return []
 
 
 def resolve_device(name) -> torch.device:
@@ -276,9 +279,10 @@ def configs_from_args(argv=None) -> list:
     if not in_files:
         print("No configuration YAML file given, exiting.", file=sys.stderr)
         raise SystemExit(1)
-    missing = _unported(args)
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+    if args.mesh_devices > 1 and resolve_device(args.device).type == "cuda":
+        from meshrecon_torch.sharding.meshes import cuda_devices
+
+        cuda_devices(args.mesh_devices)  # too few GPUs raise here
     configs = []
     for idx, in_file in enumerate(in_files):
         if len(in_files) == 1:
@@ -396,6 +400,8 @@ def _config_for_file(args, in_file: str, out_file: str,
         checkpoint_dir=args.checkpoint_dir,
         profile_dir=args.profile,
         resume=args.resume,
+        mesh_devices=args.mesh_devices,
+        scene_devices=args.scene_devices,
         ensemble_seeds=seeds,
         exposure=exposure,
         frames_loader=loader,

@@ -9,8 +9,15 @@ run in batches of B=4 main cameras with side counts padded to a bucket (4
 or 8), as in the reference package; at verbosity >= 3 (``-V``) each main
 camera of a flow iteration takes the stage-by-stage path instead and dumps
 its images. A seed ensemble refines the cloud once per seed and meshes the
-union; several scenes run one after another. The JAX package's compile
-workarounds (prewarming, cached jitted steps) have no counterpart here.
+union; several scenes run one after another. With ``mesh_devices`` > 1 a
+flow iteration's batches hold one main camera per device
+(``sharding.sharded_fused_update``). With ``scene_devices`` > 1 several
+scenes, or an ensemble's seeds, run at once, each its own single-scene
+run in a thread of its own on its home device, so that one scene's host
+stages (the point filter above all) overlap the others' device work; the
+JAX package runs them in lockstep instead (ROADMAP Queue C). The JAX
+package's compile workarounds (prewarming, cached jitted steps) have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -40,6 +47,9 @@ from meshrecon_torch.pipeline.heuristic import Heuristic
 from meshrecon_torch.points.filter import filter_points
 from meshrecon_torch.raster.fragment import mix_background
 from meshrecon_torch.raster.rasterizer import Renderer
+from meshrecon_torch.sharding.meshes import (cuda_devices, make_device_mesh,
+                                             parallel_shards,
+                                             sharded_fused_update)
 from meshrecon_torch.utils.profiling import StageTimer
 
 # main cameras per dense update (the reference package's single-chip batch)
@@ -81,14 +91,50 @@ def _flow_knobs(config) -> dict:
                 fine_warps=config.flow_fine_warps or 1)
 
 
+def _update_options(config) -> dict:
+    """The flow update's options of the configuration: its flow knobs,
+    sampling, solver, Farneback, variance and shadow sampler."""
+    return dict(**_flow_knobs(config), sampling=config.sampling,
+                flow_solver=config.flow_solver,
+                use_farneback=config.use_farneback,
+                variance=config.variance_mode,
+                variance_taps=config.variance_taps,
+                shadow_sample=config.shadow_sample)
+
+
 def main_update(config) -> FusedMainUpdate:
     """The flow update with the configuration's flow knobs."""
-    return FusedMainUpdate(
-        config.height, config.width, **_flow_knobs(config),
-        sampling=config.sampling, flow_solver=config.flow_solver,
-        use_farneback=config.use_farneback, variance=config.variance_mode,
-        variance_taps=config.variance_taps,
-        shadow_sample=config.shadow_sample)
+    return FusedMainUpdate(config.height, config.width,
+                           **_update_options(config))
+
+
+def _shard_devices(config, n: int) -> list:
+    """``n`` devices for a sharded path: the configuration's CPU device
+    repeated on a CPU run, else ``n`` distinct CUDA devices (too few
+    raise ValueError)."""
+    device = torch.device(config.device)
+    if device.type == "cpu":
+        return [device] * n
+    return cuda_devices(n)
+
+
+def _scene_homes(config, scene_devices: int, n: int) -> list:
+    """The home device of each of ``n`` scenes: the scenes in contiguous
+    parts over min(scene_devices, n, GPUs) devices (the CPU repeated on a
+    CPU run), as the JAX package's scene axis takes them."""
+    have = (scene_devices if torch.device(config.device).type == "cpu"
+            else torch.cuda.device_count())
+    n_dev = max(1, min(scene_devices, n, have))
+    devices = _shard_devices(config, n_dev)
+    return [devices[j] for j, part in enumerate(
+        np.array_split(np.arange(n), n_dev)) for _ in part]
+
+
+def _at_home(config, device):
+    """``config`` with its device and its decoded frames on ``device``."""
+    config.ensure_frames()
+    return dataclasses.replace(config, device=str(device),
+                               frames=config.frames.to(device))
 
 
 def sweep_update(config) -> FusedSweepUpdate:
@@ -161,19 +207,30 @@ def _process_bundles_batched(config, renderer, bundles, timer,
 
     mode: "flow" (the flow update) or "plane-sweep" (the sweep update). Side
     lists pad to one K bucket; the last batch pads by repeating its last
-    bundle, and the padding entries' outputs are dropped. Returns one
-    (points4 (n, 4), normals (n, 3), n) per bundle, numpy float32.
+    bundle, and the padding entries' outputs are dropped. A flow iteration
+    with ``mesh_devices`` > 1 runs batches of one main camera per device
+    through ``sharded_fused_update``. Returns one (points4 (n, 4), normals
+    (n, 3), n) per bundle, numpy float32.
     """
-    update, stage = _update(config, mode)
+    batch = BATCH
+    if mode == "flow" and config.mesh_devices > 1:
+        batch = config.mesh_devices
+        mesh = make_device_mesh(batch, 1,
+                                devices=_shard_devices(config, batch))
+        update = sharded_fused_update(mesh, config.height, config.width,
+                                      **_update_options(config))
+        stage = "sharded_fused_update"
+    else:
+        update, stage = _update(config, mode)
     npix = config.height * config.width
     kb = _k_bucket(config, max(len(s) for _, s in bundles))
     cb = _bucket(kb + 1)
     results = []
-    for start in range(0, len(bundles), BATCH):
-        group = list(bundles[start:start + BATCH])
+    for start in range(0, len(bundles), batch):
+        group = list(bundles[start:start + batch])
         real = len(group)
-        group += [group[-1]] * (BATCH - real)
-        with timer.stage(stage, npix * BATCH) as done:
+        group += [group[-1]] * (batch - real)
+        with timer.stage(stage, npix * batch) as done:
             out = done(update(*_batch_inputs(config, renderer, group, kb,
                                              cb)))
         results += _results(out, real)
@@ -338,15 +395,20 @@ def reconstruct(config, timer=None) -> Mesh:
 def reconstruct_ensemble(config, timer=None) -> Mesh:
     """Refine the cloud under each seed of ``config.ensemble_seeds`` (one
     independent camera draw each), filter the union and mesh it once. The
-    clip decodes once; the seeds' configurations share its tensor."""
+    clip decodes once; the seeds' configurations share its tensor. With
+    ``scene_devices`` > 1 (and no ``-V`` dumps) the seeds refine at once,
+    each in a thread of its own on its home device (:func:`_scene_homes`)."""
     timer = timer or StageTimer(enabled=config.verbosity >= 2)
     config.ensure_frames()
-    pts_l, nrm_l, hints = [], [], []
-    for s in config.ensemble_seeds:
-        p, n, h = _refine_cloud(_seed_config(config, s), timer)
-        pts_l.append(p)
-        nrm_l.append(n)
-        hints.append(h)
+    cfgs = [_seed_config(config, s) for s in config.ensemble_seeds]
+    if config.scene_devices > 1 and config.verbosity < 3:
+        homes = _scene_homes(config, config.scene_devices, len(cfgs))
+        clouds = parallel_shards(lambda c: _refine_cloud(c, timer), homes,
+                                 [(_at_home(c, d),)
+                                  for c, d in zip(cfgs, homes)])
+    else:
+        clouds = [_refine_cloud(c, timer) for c in cfgs]
+    pts_l, nrm_l, hints = zip(*clouds)
     hint = hints[0]
     with timer.stage("filter_points"):
         points, normals, _ = filter_points(
@@ -359,13 +421,32 @@ def reconstruct_ensemble(config, timer=None) -> Mesh:
     return _finish(config, hint, points, normals, timer)
 
 
-def reconstruct_scenes(configs, timer=None) -> list:
-    """Reconstruct several scenes one after another; each lazy scene's
-    frames leave the device when it is done, so the device holds one clip
-    at a time. Returns the meshes in order."""
-    meshes = []
+def reconstruct_scenes(configs, scene_devices: int = 1, timer=None) -> list:
+    """Reconstruct several scenes; returns the meshes in order.
+
+    One after another by default: each lazy scene's frames leave the
+    device when it is done, so the device holds one clip at a time. With
+    ``scene_devices`` > 1 every scene's clip is resident and each scene
+    runs its single-scene :func:`reconstruct` at once, in a thread of its
+    own on its home device (:func:`_scene_homes`; one card holds them
+    all), so that one scene's host stages overlap the others' device
+    work. A scene's ensemble seeds run one after another in its thread.
+    ``-V`` dumps name their files alike for every scene, so scenes that
+    dump run one after another."""
+    configs = list(configs)
+    if (scene_devices <= 1 or len(configs) <= 1
+            or any(c.verbosity >= 3 for c in configs)):
+        meshes = []
+        for cfg in configs:
+            meshes.append(reconstruct(cfg, timer=timer))
+            cfg.release_frames()
+        return meshes
+    homes = _scene_homes(configs[0], scene_devices, len(configs))
+    scenes = [dataclasses.replace(_at_home(c, d), scene_devices=1)
+              for c, d in zip(configs, homes)]
+    meshes = parallel_shards(lambda c: reconstruct(c, timer=timer), homes,
+                             [(c,) for c in scenes])
     for cfg in configs:
-        meshes.append(reconstruct(cfg, timer=timer))
         cfg.release_frames()
     return meshes
 

@@ -14,6 +14,7 @@ import json
 import math
 import os
 import subprocess
+import threading
 import time
 from collections import defaultdict
 
@@ -44,13 +45,16 @@ class StageTimer:
     """Accumulates wall time, call counts and pixel counts per named stage.
 
     ``with timer.stage(name, pixels) as done: done(value)`` times the block
-    until ``value`` is computed on its device."""
+    until ``value`` is computed on its device. Threads may share a timer
+    (the scenes of ``reconstruct_scenes``): each stage's totals then add
+    the threads' overlapping times."""
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self.times = defaultdict(float)
         self.counts = defaultdict(int)
         self.pixels = defaultdict(int)
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str, pixels: int = 0):
@@ -66,9 +70,10 @@ class StageTimer:
 
         yield done
         _sync(box.get("value"))
-        self.times[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-        self.pixels[name] += pixels
+        with self._lock:
+            self.times[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+            self.pixels[name] += pixels
 
     def report(self) -> str:
         lines = ["stage                          calls   total_s    Mpix/s"]

@@ -12,8 +12,10 @@ baseline_configs.py) against tools/baseline_configs.py on the CPU.
 - The window is the JAX tool's: the same texture, rolls and cameras
   (``problems.make_camera`` equals ``__graft_entry__._make_camera``).
 - ``c4`` through ``main`` prints its row, with no peak memory on the CPU;
-  ``c5`` raises NotImplementedError naming A12; without CUDA and without
-  ``--device cpu`` the tool raises.
+  ``c5`` at 48x64 (8 scenes x 2 cameras, K=2, the CPU as one device)
+  prints JAX's line, its outputs those of the fused update of each
+  scene's problem bit for bit; without CUDA and without ``--device cpu``
+  the tool raises.
 """
 
 import ast
@@ -99,9 +101,33 @@ def test_c4_main_prints_its_row():
     assert torch.isfinite(depth[res["out"]["valid"]]).all()
 
 
-def test_c5_raises():
-    with pytest.raises(NotImplementedError, match="A12"):
-        bc.main(["c5", "--device", "cpu"])
+def test_c5_prints_its_row():
+    """JAX's config5 line (``ms per 8-scene x 2-camera sharded FUSED dense
+    update = Mpix/s aggregate``; the warm-up seconds where JAX prints its
+    compile time) and its outputs."""
+    from meshrecon_torch import problems, state
+    from meshrecon_torch.pipeline.fused import fused_main_update_batched
+
+    h, w = 48, 64
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = bc.main(["c5", "--height", str(h), "--width", str(w),
+                       "--device", "cpu"])
+    lines = out.getvalue().splitlines()
+    assert lines[0].startswith("# device: cpu")
+    assert lines[1] == (f"# config5: 8 scenes x 2 cams, {h}x{w}, K=2, "
+                        "1 device(s), fused")
+    assert re.fullmatch(
+        r"config5: [\d.]+ ms per 8-scene x 2-camera sharded FUSED dense "
+        r"update = [\d.]+ Mpix/s aggregate \(warm-up [\d.]+s\)",
+        lines[-1]), lines[-1]
+    assert res["ms"] > 0 and res["n_dev"] == 1
+    one = fused_main_update_batched(*state.from_numpy(
+        problems.fused_problem(2, 2, h, w, seed=0), "cpu"), h, w)
+    assert res["out"]["point4"].shape == (8, 2, h, w, 4)
+    for s in (0, 7):
+        for key in ("point4", "normals", "pdf", "valid", "depth"):
+            assert torch.equal(res["out"][key][s], one[key]), key
 
 
 def test_c4_without_cuda_raises(monkeypatch):

@@ -30,7 +30,7 @@ from meshrecon_torch.raster import rasterizer
 torch.set_num_threads(1)
 
 SUBPACKAGES = ["flow", "depth", "pipeline", "geometry", "points", "raster",
-               "io", "utils"]
+               "io", "utils", "sharding"]
 
 
 def _kind(obj):

@@ -111,6 +111,35 @@ def test_a_launch_counts_once_and_the_entry_resolves_once(stub):
     assert _build.all_kernels() == [k, other]
 
 
+def test_launches_from_threads_count_exactly(stub, monkeypatch):
+    """Shards launch from threads of their own (sharding/meshes.py): no
+    increment is lost, even with the interpreter switching threads every
+    microsecond."""
+    import sys
+    import threading
+
+    monkeypatch.setattr(sys, "getswitchinterval", sys.getswitchinterval)
+    sys.setswitchinterval(1e-6)
+    k = _build.Kernel("probe", "mr_roofline_copy", "src", "ref")
+    x = torch.zeros(16)
+    start = threading.Barrier(8)
+
+    def shard():
+        start.wait()
+        for _ in range(2000):
+            k.launch(x, x, 16)
+
+    threads = [threading.Thread(target=shard) for _ in range(8)]
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    finally:
+        sys.setswitchinterval(0.005)
+    assert k.launches == 8 * 2000
+
+
 def test_a_launch_under_capture_is_not_counted(stub):
     k = _build.Kernel("probe", "mr_roofline_copy", "src", "ref")
     x = torch.zeros(16)

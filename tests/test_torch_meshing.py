@@ -120,6 +120,43 @@ def test_native_build_is_keyed_and_outside_reference():
     assert built and all("meshrecon_torch" in str(p) for p in built)
 
 
+def test_native_build_from_threads_builds_once(monkeypatch, tmp_path):
+    """Four threads that first call ``library()`` together (the filters
+    of scenes that run at once) wait for one build: one library, which loads and
+    meshes a sphere as the JAX package's does."""
+    import threading
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    native.library.cache_clear()
+    start = threading.Barrier(4)
+    libs = []
+
+    def first_call():
+        start.wait()
+        libs.append(native.library())
+
+    try:
+        threads = [threading.Thread(target=first_call) for _ in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        assert len(libs) == 4 and all(lib is libs[0] for lib in libs)
+        built = list(tmp_path.iterdir())
+        assert len(built) == 1 and built[0].suffix == ".so", built
+        g = 12
+        ax = np.arange(g, dtype=np.float32) - (g - 1) / 2.0
+        x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+        chi = (4.0 - np.sqrt(x * x + y * y + z * z)).astype(np.float32)
+        verts, faces = native.marching_tetrahedra(chi, 0.0)
+        ref_v, ref_f = marching_tetrahedra_native(chi, 0.0)
+        assert len(faces) > 50
+        np.testing.assert_array_equal(verts, ref_v)
+        np.testing.assert_array_equal(faces, ref_f)
+    finally:
+        native.library.cache_clear()
+
+
 def test_native_build_failure_raises(monkeypatch, tmp_path):
     """No compiler: the build raises; nothing falls back to numpy."""
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path)

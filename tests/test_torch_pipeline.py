@@ -1,7 +1,7 @@
 """The whole reconstruction of meshrecon_torch against meshrecon on the CPU:
 koule-tr at 80x60 (frames made by the JAX package, so both packages see
 the same pixels), the hybrid default at seed 3; the CLI; checkpoints; the
-flags the port does not have yet.
+sharding flags (their paths: tests/test_torch_sharding_e2e.py).
 
 Bounds: the JAX package's own end-to-end bounds (tests/test_pipeline.py:
 median radius error < 0.13 R and median |error| < 0.14 R untrimmed; median
@@ -172,11 +172,18 @@ def test_device_busy_merges_device_events_only():
 
 @pytest.mark.parametrize("flag", [
     ["--mesh-devices", "2"], ["--scene-devices", "2"]])
-def test_unported_flags_raise(flag):
-    argv = ["tracks/koule-tr.yaml"] + flag + ["--device", "cpu",
-                                              "--synthetic", "sphere"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config_from_args(argv)
+def test_sharding_flags_parse(flag):
+    """Both sharding flags land in Config's fields, as JAX's
+    config_from_args puts them on the same argv."""
+    from meshrecon.pipeline.config import config_from_args as j_config
+
+    argv = ["tracks/koule-tr.yaml"] + flag + ["--synthetic", "sphere", "-s",
+                                              "16"]
+    ours = config_from_args(argv + ["--device", "cpu"])
+    ref = j_config(argv)
+    for field in ("mesh_devices", "scene_devices"):
+        assert getattr(ours, field) == getattr(ref, field), field
+    assert {ours.mesh_devices, ours.scene_devices} == {1, 2}
 
 
 def test_missing_clip_raises():
