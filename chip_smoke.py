@@ -3,13 +3,15 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
     [--parent-raster PARENT/meshrecon_torch/csrc/raster.cu]
+    [--parent-raster-setup PARENT/meshrecon_torch/csrc/raster_setup.cu]
     [--parent-warp PARENT/meshrecon_torch/csrc/warp.cu]
     [--parent-roofline PARENT/meshrecon_torch/csrc/roofline.cu]
 
 Each ``--parent-*`` source (another tree's, e.g. the parent commit's from
 an unpacked ``git archive`` under ``build/``) is built apart with the same
-flags and its kernels (K1 and K5; K3b; R2) are timed against this tree's
-in the same alternating rounds, and must equal them bit for bit.
+flags and its kernels (K1 and K5; SETUP and BIN; K3b; R2) are timed
+against this tree's in the same alternating rounds, and must equal them
+(bit for bit; BIN's counts and list prefixes).
 
 1. Prints the device (``torch.cuda.get_device_name`` and nvidia-smi's name
    and power limit); exits non-zero without a CUDA device.
@@ -40,10 +42,19 @@ in the same alternating rounds, and must equal them bit for bit.
    kernels: SETUP (the triangle setup) bitwise against ``pack_records``
    (NaN-aware) and BIN (the tile lists) against ``bin_chunks`` at chunks 8
    and 16 and ``bin_superchunks`` at chunk 8 (counts and list prefixes
-   equal), at 16 cameras on the 16,384- and 65,536-triangle spheres; BIN
-   is timed in 7 alternating rounds against its library call, the
-   ``torch.sort`` of the tile keys plus the ``sum`` of their activity that
-   the JAX package bins with (binned.py:597-598, 612-613).
+   equal), at 16 cameras on the 16,384- and 65,536-triangle spheres (six
+   shapes); the launch geometry (threads, resident CTAs an SM, clusters)
+   printed. At each shape both kernels are timed in 7 alternating rounds:
+   the wrapper eager, the C entry through ctypes eager and from a CUDA
+   graph of 20 calls (the kernel alone), BIN also against its library
+   call, the ``torch.sort`` of the tile keys plus the ``sum`` of their
+   activity that the JAX package bins with (binned.py:597-598, 612-613);
+   with ``--parent-raster-setup`` the parent's two kernels the same way,
+   wrappers included (that raster_setup.cu built with this tree's other
+   kernels and launch binding into a second extension module), whose
+   records and chunk boxes must equal this tree's bit for bit and whose
+   counts and list prefixes must equal this tree's. The phase prints its
+   wall seconds.
    Then the raster phase. K5 (the two-level raster, one kernel for
    the TPU's K5a and K5b) bitwise against ``render_depth`` through
    ``render_depth_binned(two_level=True)`` at one camera (K5a) and
@@ -201,7 +212,9 @@ float32 (``Precision.HIGHEST``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import functools
 import json
 import statistics
 import subprocess
@@ -654,16 +667,107 @@ def _bits_err(torch, a, b):
     return 0.0
 
 
-def binning_phase(torch, dev, res, slice_args):
+def _setup_entry(torch, entry, cams, soup, valid, group, chunk):
+    """A call of a ``mr_raster_setup`` entry (:func:`_c_entry`) into
+    outputs made once. Returns (call, packed, cbox)."""
+    n, t = cams.shape[0], soup.shape[0]
+    n_rec = -(-2 * t // group) * group
+    packed = torch.empty((n, 16, n_rec), dtype=torch.float32,
+                         device=cams.device)
+    cbox = torch.empty((n, 4, n_rec // chunk), dtype=torch.float32,
+                       device=cams.device)
+    args = [cams.data_ptr(), soup.data_ptr(), valid.data_ptr(),
+            packed.data_ptr(), cbox.data_ptr(), n, t, n_rec, chunk]
+
+    def call():
+        entry(*args, torch.cuda.current_stream().cuda_stream)
+
+    return call, packed, cbox
+
+
+def _bin_entry(torch, entry, cbox, supers):
+    """A call of a ``mr_raster_bin`` entry (:func:`_c_entry`) on the chunk
+    boxes ``cbox`` at H x W into outputs made once. Returns (call, lists,
+    counts)."""
+    from meshrecon_torch.raster import binned
+
+    n, nch = cbox.shape[0], cbox.shape[2]
+    ntx, nty = -(-W // binned.TILE), -(-H // binned.TILE)
+    lists = torch.empty((n, nty * ntx, nch // supers), dtype=torch.int32,
+                        device=cbox.device)
+    counts = torch.empty((n, nty * ntx), dtype=torch.int32,
+                         device=cbox.device)
+    tiles = binned._screen(H, W, cbox.device)[1]
+    args = [cbox.data_ptr(), *(t.data_ptr() for t in tiles),
+            lists.data_ptr(), counts.data_ptr(), n, nch, supers, ntx, nty]
+
+    def call():
+        entry(*args, torch.cuda.current_stream().cuda_stream)
+
+    return call, lists, counts
+
+
+def _same_lists(torch, lists, counts, want_lists, want_counts):
+    """Equal counts, and equal list entries before each count."""
+    live = (torch.arange(lists.shape[-1], device=lists.device)
+            < want_counts[..., None])
+    return (torch.equal(counts, want_counts) and torch.equal(
+        torch.where(live, lists, 0), torch.where(live, want_lists, 0)))
+
+
+def _entry_timers(torch, name, call):
+    """``name eager`` (CUDA events around 20 back-to-back calls) and
+    ``name graph`` (a CUDA graph of 20 calls) timers of an entry call."""
+    return {f"{name} eager": lambda: _cuda_ms(torch, call, 20),
+            f"{name} graph": _graph_timer(torch, call, 20, 3)}
+
+
+def binning_phase(torch, dev, res, slice_args, parent=None):
     """The binning's two kernels against their plain versions at the flow
     update's 16 cameras, on the 16,384- and 65,536-triangle spheres at
-    640x480: SETUP's records and chunk boxes against ``pack_records`` bit
-    for bit (NaN-aware), and BIN's counts and list prefixes against
-    ``bin_chunks`` at chunks 8 and 16 and ``bin_superchunks`` (8 chunks a
-    superchunk) at chunk 8, fed the plain version's chunk boxes."""
+    640x480, at chunk 8, chunk 16 and superchunks of 8 chunks of 8: SETUP's
+    records and chunk boxes against ``pack_records`` bit for bit
+    (NaN-aware), and BIN's counts and list prefixes against ``bin_chunks``
+    / ``bin_superchunks``, fed the plain version's chunk boxes. Each kernel
+    is timed in 7 alternating rounds: its wrapper eager, its C entry
+    through ctypes eager and from a CUDA graph of 20 calls (the kernel
+    alone), BIN also against its library call; with ``parent`` (another
+    tree's raster_setup.cu built apart, :func:`build_parent_binding`) the
+    parent's two kernels the same way, their wrappers included, whose
+    outputs must equal this tree's."""
     from meshrecon_torch import problems, state
+    from meshrecon_torch.kernels import library
     from meshrecon_torch.raster import binned
     from meshrecon_torch.tools import fused_breakdown as fb
+
+    t0 = time.perf_counter()
+    lib = library().cdll
+    shape = (ctypes.c_int * 6)()
+    if lib.mr_raster_setup_shape(shape):
+        raise RuntimeError("mr_raster_setup_shape failed")
+    print(f"binning geometry: SETUP {shape[0]} threads a CTA, {shape[1]} "
+          f"resident CTAs an SM; BIN {shape[2]} threads a CTA, {shape[3]} "
+          f"resident CTAs an SM, clusters of up to {shape[4]} CTAs, "
+          f"{shape[5]} of them resident at once")
+    libs = {"new": lib}
+    parent_ext = None
+    if parent is not None:
+        libs["parent"], parent_ext = parent
+    entries = {name: (_c_entry(lb, "mr_raster_setup"),
+                      _c_entry(lb, "mr_raster_bin"))
+               for name, lb in libs.items()}
+
+    def wrapper_timers(kernel, call):
+        """``wrapper eager`` (this tree's kernel) and, with a parent, the
+        same wrapper launching the parent's kernel (``parent wrapper
+        eager``): CUDA events around 20 back-to-back calls."""
+        timers = {"wrapper eager": lambda: _cuda_ms(torch, call, 20)}
+        if parent_ext is not None:
+            def parent_timer():
+                with _launching(kernel, parent_ext):
+                    return _cuda_ms(torch, call, 20)
+            timers["parent wrapper eager"] = parent_timer
+        return timers
 
     cams = torch.cat([slice_args[2][:, None], slice_args[4]], 1).reshape(
         B * (K + 1), 4, 4)
@@ -673,8 +777,11 @@ def binning_phase(torch, dev, res, slice_args):
         soup, valid = (torch.from_numpy(a).to(dev) for a in
                        state.pack_soup(problems.sphere_soup(nt, nph)))
         label = f"{ncam}x{H}x{W}, {2 * nt * nph} tris"
+        plain_ms = None
         for chunk, supers in ((8, 1), (16, 1), (8, binned.SUPERS)):
             group = chunk * supers
+            shape_label = f"{label}, chunk {chunk}" + (
+                f", {supers} chunks a superchunk" if supers > 1 else "")
             packed, cbox = binned.setup_records(cams, soup, valid, group,
                                                 chunk)
             plain = binned.pack_records(cams, soup, valid, group)
@@ -682,21 +789,36 @@ def binning_phase(torch, dev, res, slice_args):
             plain_cbox = torch.stack(binned._group_boxes(*boxes, chunk),
                                      1).contiguous()
             torch.cuda.synchronize()
-            if (chunk, supers) == (8, 1):
-                err = max(_bits_err(torch, packed, plain),
-                          _bits_err(torch, cbox, plain_cbox))
-                ms = _cuda_ms(torch, lambda: binned.setup_records(
-                    cams, soup, valid, group, chunk), 20)
+            err = max(_bits_err(torch, packed, plain),
+                      _bits_err(torch, cbox, plain_cbox))
+            if plain_ms is None:
                 plain_ms = _cuda_ms(torch, lambda: binned.pack_records(
                     cams, soup, valid, group), 5)
-                # bytes: cameras, soup, validity in; records and chunk boxes
-                # out; operations: ~360 a (camera, triangle), float32 and
-                # float64 alike (fb.SETUP_OPS)
-                res.add(binned.SETUP, label, err, 0.0, ms, plain_ms,
-                        work=(ncam * 64 + soup.numel() * 4 + valid.numel()
-                              + (packed.numel() + cbox.numel()) * 4,
-                              fb.SETUP_OPS * ncam * soup.shape[0]))
-            del packed, cbox, plain
+            timers = wrapper_timers(binned.SETUP, lambda: binned.setup_records(
+                cams, soup, valid, group, chunk))
+            outs = []  # a graph's outputs live as long as its replays
+            for name, (setup, _) in entries.items():
+                call, p_out, c_out = _setup_entry(torch, setup, cams, soup,
+                                                  valid, group, chunk)
+                call()
+                torch.cuda.synchronize()
+                if _bits_err(torch, p_out, packed) or _bits_err(
+                        torch, c_out, cbox):
+                    raise AssertionError(f"raster_setup [{shape_label}]: "
+                                         f"the {name} entry differs from "
+                                         "the wrapper's records")
+                outs.append((p_out, c_out))
+                timers.update(_entry_timers(torch, name, call))
+            ms = _interleaved(f"raster_setup [{shape_label}]", timers)
+            # bytes: cameras, soup, validity in; records and chunk boxes
+            # out; operations: ~360 a (camera, triangle), float32 and
+            # float64 alike (fb.SETUP_OPS)
+            res.add(binned.SETUP, shape_label, err, 0.0, ms["wrapper eager"],
+                    plain_ms,
+                    work=(ncam * 64 + soup.numel() * 4 + valid.numel()
+                          + (packed.numel() + cbox.numel()) * 4,
+                          fb.SETUP_OPS * ncam * soup.shape[0]))
+            del packed, cbox, plain, outs
 
             def plain_bin():
                 if supers == 1:
@@ -707,13 +829,23 @@ def binning_phase(torch, dev, res, slice_args):
             lists, counts = binned.tile_lists(plain_cbox, H, W, supers)
             want_lists, want_counts = plain_bin()
             torch.cuda.synchronize()
-            live = (torch.arange(lists.shape[-1], device=dev)
-                    < want_counts[..., None])
-            same = (torch.equal(counts, want_counts) and torch.equal(
-                torch.where(live, lists, 0), torch.where(live, want_lists,
-                                                         0)))
-            entries = int(want_counts.sum().item())
-            del lists, live, want_lists
+            same = _same_lists(torch, lists, counts, want_lists, want_counts)
+            entries_n = int(want_counts.sum().item())
+            timers = wrapper_timers(binned.BIN, lambda: binned.tile_lists(
+                plain_cbox, H, W, supers))
+            outs = []
+            for name, (_, bin_fn) in entries.items():
+                call, l_out, c_out = _bin_entry(torch, bin_fn, plain_cbox,
+                                                supers)
+                call()
+                torch.cuda.synchronize()
+                if not _same_lists(torch, l_out, c_out, lists, counts):
+                    raise AssertionError(f"raster_bin [{shape_label}]: the "
+                                         f"{name} entry's lists differ from "
+                                         "the wrapper's")
+                outs.append((l_out, c_out))
+                timers.update(_entry_timers(torch, name, call))
+            del lists, want_lists
             # the tile keys the JAX package sorts (binned.py:590-598)
             keys, active = binned._tile_keys(
                 *binned._group_boxes(*plain_cbox.unbind(1), supers), H, W,
@@ -727,30 +859,25 @@ def binning_phase(torch, dev, res, slice_args):
 
             if not torch.equal(library_bin()[1], want_counts):
                 raise AssertionError("BIN's library call: counts differ")
-            bin_label = f"{label}, chunk {chunk}" + (
-                f", {supers} chunks a superchunk" if supers > 1 else "")
-            ms = _interleaved(f"raster_bin [{bin_label}] against torch.sort "
-                              "+ sum of its tile keys", {
-                                  "BIN": lambda: _cuda_ms(
-                                      torch, lambda: binned.tile_lists(
-                                          plain_cbox, H, W, supers), 20),
-                                  "torch.sort": lambda: _cuda_ms(
-                                      torch, library_bin, 20)})
-            del keys, active
-            plain_ms = _cuda_ms(torch, plain_bin, 3)
+            timers["torch.sort"] = lambda: _cuda_ms(torch, library_bin, 20)
+            ms = _interleaved(f"raster_bin [{shape_label}] against torch.sort "
+                              "+ sum of its tile keys", timers)
+            del keys, active, outs
+            bin_plain_ms = _cuda_ms(torch, plain_bin, 3)
             # bytes: chunk boxes in, the listed ids and the counts out;
             # operations: the four comparisons of each listed group (the
             # least any binning does; the rest is skipped by unions)
-            res.add(binned.BIN, bin_label,
-                    0.0 if same else float("inf"), 0.0, ms["BIN"], plain_ms,
-                    work=(plain_cbox.numel() * 4 + (entries + ncam * ntiles)
-                          * 4, 4 * entries),
+            res.add(binned.BIN, shape_label,
+                    0.0 if same else float("inf"), 0.0, ms["wrapper eager"],
+                    bin_plain_ms,
+                    work=(plain_cbox.numel() * 4
+                          + (entries_n + ncam * ntiles) * 4, 4 * entries_n),
                     library_ms=ms["torch.sort"])
             slots = want_counts.numel() * (plain_cbox.shape[-1] // supers)
-            print(f"raster_bin [{label}, chunk {chunk}, supers {supers}]: "
-                  f"counts and list prefixes equal: {same}; {entries} list "
-                  f"entries of {slots}")
+            print(f"raster_bin [{shape_label}]: counts and list prefixes "
+                  f"equal: {same}; {entries_n} list entries of {slots}")
             del plain_cbox
+    print(f"binning phase: {time.perf_counter() - t0:.1f} s")
 
 
 RASTER_GRAPH_CALLS = 20  # raster calls in a CUDA graph of the raster phase
@@ -778,6 +905,57 @@ def build_parent(src):
         if "registers" in line or "Compiling entry" in line:
             print(f"ptxas (parent): {line.strip()}")
     return ctypes.CDLL(str(out))
+
+
+def build_parent_binding(src):
+    """Build another tree's source of one kernel file (the parent commit's
+    ``csrc/raster_setup.cu``) with this tree's other kernels and launch
+    binding (``csrc/bind.cpp``), with the port's flags, into
+    build/chip_smoke/, and load it twice: through ctypes (its C entries)
+    and as a second extension module, whose entries launch the parent's
+    kernels through this tree's wrappers (:func:`_launching`). Prints the
+    build time and the compiler's register report of ``src``."""
+    from meshrecon_torch.kernels import _build
+
+    src = Path(src).resolve()
+    out = Path("build/chip_smoke").resolve()
+    out.mkdir(parents=True, exist_ok=True)
+    srcs = [src] + [s for s in _build._sources()
+                    if s.suffix == ".cu" and s.name != src.name]
+    objs = [out / f"parent_bind_{i}_{s.stem}.o" for i, s in enumerate(srcs)]
+    bind_obj = out / "parent_bind.o"
+    lib = out / f"parent_{src.stem}_bind.so"
+    t0 = time.perf_counter()
+    log = _build._run_all(
+        [[_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+         for s, o in zip(srcs, objs)] + [_build.bind_command(bind_obj)])
+    _build._run_all([[_build._nvcc(), "-gencode",
+                      "arch=compute_90a,code=sm_90a", "-shared", "-o",
+                      str(lib), *map(str, objs), str(bind_obj)]])
+    print(f"build: {src} (parent) with this tree's other kernels and "
+          f"binding, {time.perf_counter() - t0:.1f} s")
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and f"{src.stem}_cu" in line:
+            print("ptxas (parent): " + " | ".join(
+                x.strip() for x in lines[i:i + 4]))
+    return ctypes.CDLL(str(lib)), _build.import_binding(lib)
+
+
+@contextlib.contextmanager
+def _launching(kernel, ext):
+    """Launch ``kernel``'s entry from ``ext`` (another build of the
+    binding, :func:`build_parent_binding`) through its wrapper, this
+    tree's launch path, until the block ends."""
+    from meshrecon_torch.kernels import library
+
+    old = kernel._fn
+    kernel._fn = functools.partial(library().ext.launch,
+                                   getattr(ext, kernel.entry))
+    try:
+        yield
+    finally:
+        kernel._fn = old
 
 
 def _c_entry(lib, name):
@@ -2827,6 +3005,11 @@ def main(argv=None) -> int:
              "unpacked copy of that tree): its K1 and K5, built apart, are "
              "timed against this tree's in the raster phase")
     parser.add_argument(
+        "--parent-raster-setup", metavar="RASTER_SETUP_CU",
+        help="the parent commit's meshrecon_torch/csrc/raster_setup.cu: its "
+             "SETUP and BIN, built apart, are timed against this tree's in "
+             "the binning phase and must equal them")
+    parser.add_argument(
         "--parent-warp", metavar="WARP_CU",
         help="the parent commit's meshrecon_torch/csrc/warp.cu: its K3b, "
              "built apart, is timed against this tree's and must equal it "
@@ -2886,10 +3069,14 @@ def main(argv=None) -> int:
     args_np[0], args_np[1] = state.pack_soup(problems.sphere_soup(64, 128))
     res = Results()
     kernel_phases(torch, dev, res, state.from_numpy(args_np, dev))
-    binning_phase(torch, dev, res, state.from_numpy(args_np, dev))
     parent = {name: build_parent(src) for name, src in (
         ("raster", args.parent_raster), ("warp", args.parent_warp),
         ("roofline", args.parent_roofline)) if src}
+    if args.parent_raster_setup:
+        parent["raster_setup"] = build_parent_binding(
+            args.parent_raster_setup)
+    binning_phase(torch, dev, res, state.from_numpy(args_np, dev),
+                  parent.get("raster_setup"))
     raster_launches = raster_phase(torch, dev, res,
                                    state.from_numpy(args_np, dev),
                                    parent.get("raster"))

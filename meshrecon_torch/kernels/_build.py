@@ -12,7 +12,8 @@ built until a kernel is first launched: importing this module needs
 neither ``nvcc``, ``g++`` nor a GPU. A failed build or import raises:
 there is no other way to launch. The helpers that are not launches
 (``mr_error_string``, the launch geometries ``mr_hs_block_shape``,
-``mr_roofline_fma_shape`` and ``mr_warp_bicubic_shape``, and K3b's path
+``mr_roofline_fma_shape``, ``mr_warp_bicubic_shape`` and
+``mr_raster_setup_shape``, and K3b's path
 count ``mr_warp_bicubic_paths``) are called through ctypes.
 
 Every kernel's wrapper owns a :class:`Kernel`, which launches through the
@@ -225,6 +226,8 @@ def library() -> Library:
     cdll.mr_roofline_fma_shape.restype = ctypes.c_int
     cdll.mr_warp_bicubic_shape.argtypes = [ctypes.c_void_p]
     cdll.mr_warp_bicubic_shape.restype = ctypes.c_int
+    cdll.mr_raster_setup_shape.argtypes = [ctypes.c_void_p]
+    cdll.mr_raster_setup_shape.restype = ctypes.c_int
     cdll.mr_warp_bicubic_paths.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p]
     cdll.mr_warp_bicubic_paths.restype = ctypes.c_int

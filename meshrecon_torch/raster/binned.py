@@ -18,9 +18,10 @@ Port of meshrecon/raster/binned.py, both of its paths:
    the chunk's records.
 
 On CUDA tensors the binning (:func:`bin_soup`) is two hand-written kernels
-(``csrc/raster_setup.cu``): SETUP, a thread per (camera, triangle), and
-BIN, a warp per (camera, tile) that compacts its hits with ballots, so a
-render is three launches. Their plain versions, :func:`pack_records`,
+(``csrc/raster_setup.cu``): SETUP, a thread per triangle, and BIN, clusters
+of CTAs that build each camera's coarse level (the union of each run of 32
+groups) once and walk its tiles against it, compacting their hits with
+ballots, so a render is three launches. Their plain versions, :func:`pack_records`,
 :func:`bin_chunks` and :func:`bin_superchunks` (torch ops), run on CPU
 tensors, and the kernels equal them bit for bit.
 

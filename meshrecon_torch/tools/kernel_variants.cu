@@ -1,9 +1,10 @@
-// The designs K3b and R2 were chosen from, built apart from the kernel
-// library by meshrecon_torch/tools/kernel_variants.py, which times them
-// against the library's K3b (mr_warp_bicubic) and R2 (mr_roofline_fma) on
-// the card. None of them runs on the port's path. Each computes its
-// kernel's function with the same operations in the same order, so each
-// must equal the library's kernel bit for bit.
+// The designs K3b, R2, SETUP and BIN were chosen from, built apart from the
+// kernel library by meshrecon_torch/tools/kernel_variants.py, which times
+// them against the library's kernels (mr_warp_bicubic, mr_roofline_fma,
+// mr_raster_setup, mr_raster_bin) on the card. None of them runs on the
+// port's path. Each computes its kernel's function with the same
+// operations in the same order, so each must equal the library's kernel
+// bit for bit (BIN: the same counts and list prefixes).
 //
 // K3b (the Keys bicubic re-warp, csrc/warp.cu):
 //   0 first:   the first design, one pixel a thread on a 1-D grid (a 64-bit
@@ -20,9 +21,169 @@
 //   0 first:   the first design, one chain a thread, 256-thread CTAs,
 //              #pragma unroll 16 over a runtime count;
 //   1 unroll:  the same grid, 128 FMAs between loop tests.
+// SETUP and BIN (csrc/raster_setup.cu, included here): the kept kernels'
+// templates at other launch parameters, and SETUP's first design, below,
+//   SETUP 0-5: 0 a thread a record (slot 1 in warps 0-3, slot 2 in 4-7 of
+//              a 128-triangle CTA, at least 5 CTAs an SM); a thread a
+//              triangle at least 4, 6 or 10 CTAs an SM; CTAs of 64
+//              triangles, 16 or 20 an SM (the kept: a thread a triangle,
+//              128 a CTA, 8 an SM);
+//   BIN 0-5:   blocks of 8 x 4 tiles in clusters of 4 and of 8 CTAs;
+//              8 x 2 in clusters of 4 and of 8; 8 x 1 in clusters of 8; 16
+//              warps a CTA, 8 x 4 tiles in clusters of 8 (the kept: 8
+//              warps, 4 CTAs an SM; 8 x 4 tiles in clusters of 4 at 1,024
+//              groups or fewer, else 8 x 2 in clusters of 8).
 #include <climits>
 
 #include "common.cuh"
+#include "raster_setup.cu"
+
+namespace {
+
+// a record with v0 in clip space
+__device__ __forceinline__ void make_record(const Vtx& v0, const Vtx& v1,
+                                            const Vtx& v2, bool valid,
+                                            float* f) {
+  float x0, y0, z0;
+  project(v0, &x0, &y0, &z0);
+  make_record(x0, y0, z0, v1, v2, valid, f);
+}
+
+// SETUP's first design here: a thread a record. Slot 1 of triangle t is
+// record 2t, slot 2 record 2t+1; warps 0-3 build slot 1 of the CTA's 128
+// triangles, warps 4-7 slot 2 (for a
+// triangle that does not straddle the near plane an invalid record, whose
+// fields are still computed). The camera and the CTA's triangles are read
+// once into shared memory; the records go to shared memory and leave as
+// float4 rows of the (16, n_rec) planes; the chunk boxes reduce with
+// shuffles, a slot at a time, and the two slots' shares there.
+template <int kMinBlocks, int kTris = kSetupTris>
+__global__ void __launch_bounds__(2 * kTris, kMinBlocks)
+record_setup_kernel(const float* __restrict__ cameras,
+                    const float* __restrict__ soup,
+                    const unsigned char* __restrict__ soup_valid,
+                    float* __restrict__ packed, float* __restrict__ cbox,
+                    int n_tri, int n_rec, int chunk) {
+  constexpr int kThreads = 2 * kTris;  // a thread a record
+  __shared__ float cam_m[16];
+  __shared__ float tri[kTris * 9];
+  __shared__ __align__(16) float rec[kFields][kThreads];
+  __shared__ float part[2][4][kTris / 4];  // a slot's chunk-box shares
+  const int cam = blockIdx.y;
+  const long long t0 = (long long)blockIdx.x * kTris;
+  const int n_here = (int)max(0LL, min((long long)kTris, n_tri - t0));
+  if (threadIdx.x < 16) cam_m[threadIdx.x] = cameras[cam * 16 + threadIdx.x];
+  for (int i = threadIdx.x; i < n_here * 9; i += kThreads) {
+    tri[i] = soup[t0 * 9 + i];
+  }
+  __syncthreads();
+  const int slot = threadIdx.x / kTris;  // the same across a warp
+  const int tl = threadIdx.x - slot * kTris;
+  float f[kFields];
+  if (tl < n_here) {
+    const float* p = tri + tl * 9;
+    Vtx P[3];
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      const float p0 = p[3 * v], p1 = p[3 * v + 1], p2 = p[3 * v + 2];
+      P[v] = Vtx{clip_comp(cam_m, p0, p1, p2),
+                 clip_comp(cam_m + 4, p0, p1, p2),
+                 clip_comp(cam_m + 8, p0, p1, p2),
+                 clip_comp(cam_m + 12, p0, p1, p2)};
+    }
+    const bool in0 = P[0].w >= kWEps, in1 = P[1].w >= kWEps,
+               in2 = P[2].w >= kWEps;
+    const int n_in = (int)in0 + (int)in1 + (int)in2;
+    // canonical rotation: n_in == 1 puts the inside vertex first; n_in ==
+    // 2 puts the outside vertex last
+    const int first_in = in0 ? 0 : (in1 ? 1 : 2);
+    const int first_out = !in0 ? 0 : (!in1 ? 1 : 2);
+    const int k =
+        n_in == 1 ? first_in : (n_in == 2 ? (first_out + 1) % 3 : 0);
+    const Vtx A = pick3(k, P[0], P[1], P[2]);
+    const Vtx B = pick3((k + 1) % 3, P[0], P[1], P[2]);
+    const Vtx C = pick3((k + 2) % 3, P[0], P[1], P[2]);
+    const bool one = n_in == 1, two = n_in == 2;
+    const bool sv = soup_valid[t0 + tl] != 0;
+    // slot 1: case1 (A, iAB, iAC); case2 (A, B, iBC); else the original;
+    // slot 2: only case2 (A, iBC, iAC). One record a thread, so one copy
+    // of its code.
+    Vtx V1 = B, V2 = C;
+    bool valid = n_in >= 1 && sv;
+    if (slot == 1) {
+      V1 = isect(B, C);
+      V2 = isect(A, C);
+      valid = two && sv;
+    } else if (one) {
+      V1 = isect(A, B);
+      V2 = isect(A, C);
+    } else if (two) {
+      V2 = isect(B, C);
+    }
+    make_record(A, V1, V2, valid, f);
+  } else {
+    padding_record(f);
+  }
+  const int r = 2 * tl + slot;
+#pragma unroll
+  for (int i = 0; i < kFields; ++i) rec[i][r] = f[i];
+  // each slot's share of the chunk boxes: its chunk / 2 triangles are as
+  // many neighbouring lanes (chunk / 2 divides 32)
+  const int half = chunk / 2;
+  const float4 b = warp_union(make_float4(f[12], f[13], f[14], f[15]),
+                              half / 2);
+  if (tl % half == 0) {
+    part[slot][0][tl / half] = b.x;
+    part[slot][1][tl / half] = b.y;
+    part[slot][2][tl / half] = b.z;
+    part[slot][3][tl / half] = b.w;
+  }
+  __syncthreads();
+  // the CTA's records [r0, r0 + nr) of each field, as float4 (nr and r0
+  // are multiples of 8: n_rec is a multiple of chunk)
+  const long long r0 = (long long)blockIdx.x * kThreads;
+  const int nr = (int)min((long long)kThreads, n_rec - r0);
+  constexpr int kRowVecs = kThreads / 4;
+  constexpr int kRowsAtOnce = kThreads / kRowVecs;
+  float* out = packed + (long long)cam * kFields * n_rec + r0;
+  const int c = threadIdx.x % kRowVecs;
+  if (4 * c < nr) {
+#pragma unroll
+    for (int i = threadIdx.x / kRowVecs; i < kFields; i += kRowsAtOnce) {
+      reinterpret_cast<float4*>(out + (long long)i * n_rec)[c] =
+          reinterpret_cast<const float4*>(rec[i])[c];
+    }
+  }
+  // chunk boxes: a thread a (component, chunk), the two slots' shares
+  const int nc = nr / chunk, nch = n_rec / chunk;
+  for (int e = threadIdx.x; e < 4 * nc; e += kThreads) {
+    const int comp = e / nc, ch = e - comp * nc;
+    const float v0 = part[0][comp][ch], v1 = part[1][comp][ch];
+    cbox[((long long)cam * 4 + comp) * nch + r0 / chunk + ch] =
+        comp % 2 == 0 ? fminf(v0, v1) : fmaxf(v0, v1);
+  }
+}
+
+
+template <int kMinBlocks, int kTris = kSetupTris>
+int launch_record_setup(const float* cameras, const float* soup,
+                 const unsigned char* soup_valid, float* packed, float* cbox,
+                 int n_cams, int n_tri, int n_rec, int chunk, void* stream) {
+  if ((chunk != 8 && chunk != 16 && chunk != 32 && chunk != 64) ||
+      n_rec % chunk != 0 || (long long)n_rec < 2LL * n_tri || n_tri < 0 ||
+      n_cams < 0 || n_cams > 65535 ||
+      reinterpret_cast<uintptr_t>(packed) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_cams == 0 || n_rec == 0) return 0;
+  dim3 grid(mr_blocks(n_rec, 2 * kTris), n_cams);
+  record_setup_kernel<kMinBlocks, kTris>
+      <<<grid, 2 * kTris, 0, (cudaStream_t)stream>>>(
+          cameras, soup, soup_valid, packed, cbox, n_tri, n_rec, chunk);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 namespace {
 
@@ -288,3 +449,80 @@ MR_EXPORT int mr_variant_r2(int variant, const float* x, float* o, int n,
   }
   return (int)cudaGetLastError();
 }
+
+// SETUP's variant `variant` (0-5, above), mr_raster_setup's arguments
+MR_EXPORT int mr_variant_setup(int variant, const float* cameras,
+                               const float* soup,
+                               const unsigned char* soup_valid, float* packed,
+                               float* cbox, int n_cams, int n_tri, int n_rec,
+                               int chunk, void* stream) {
+#define MR_SETUP_ARGS \
+  cameras, soup, soup_valid, packed, cbox, n_cams, n_tri, n_rec, chunk, stream
+  switch (variant) {
+    case 0:
+      return launch_record_setup<5>(MR_SETUP_ARGS);
+    case 1:
+      return launch_setup<4>(MR_SETUP_ARGS);
+    case 2:
+      return launch_setup<6>(MR_SETUP_ARGS);
+    case 3:
+      return launch_setup<10>(MR_SETUP_ARGS);
+    case 4:
+      return launch_setup<16, 64>(MR_SETUP_ARGS);
+    case 5:
+      return launch_setup<20, 64>(MR_SETUP_ARGS);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef MR_SETUP_ARGS
+}
+
+// BIN's variant `variant` (0-5, above), mr_raster_bin's arguments
+MR_EXPORT int mr_variant_bin(int variant, const float* cbox, const float* tx0,
+                             const float* tx1, const float* ty0,
+                             const float* ty1, int* lists, int* counts,
+                             int n_cams, int nch, int supers, int ntx,
+                             int nty, void* stream) {
+#define MR_BIN_ARGS                                                         \
+  cbox, tx0, tx1, ty0, ty1, lists, counts, n_cams, nch, supers, ntx, nty
+  switch (variant) {
+    case 0:
+      return launch_bin<8, 4, 4>(MR_BIN_ARGS, 4, stream);
+    case 1:
+      return launch_bin<8, 4, 4>(MR_BIN_ARGS, 8, stream);
+    case 2:
+      return launch_bin<8, 4, 2>(MR_BIN_ARGS, 4, stream);
+    case 3:
+      return launch_bin<8, 4, 2>(MR_BIN_ARGS, 8, stream);
+    case 4:
+      return launch_bin<8, 4, 1>(MR_BIN_ARGS, 8, stream);
+    case 5:
+      return launch_bin<16, 2, 4>(MR_BIN_ARGS, 8, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// BIN's variant `variant` (0: blocks of 8 x 4 tiles, 1: of 8 x 2, in
+// clusters of 8) with per-CTA stamps (kStamps unsigned 64-bit values a CTA
+// of the grid, csrc/raster_setup.cu): the global timer (ns) at its start
+// and end; the SM's cycles building the coarse level; blocks taken; cycles
+// staging; cycles in all; survivors; (tile, run) pairs walked; SM; cycles
+// finding the survivors, walking, taking blocks
+MR_EXPORT int mr_variant_bin_timed(int variant, const float* cbox,
+                                   const float* tx0, const float* tx1,
+                                   const float* ty0, const float* ty1,
+                                   int* lists, int* counts, int n_cams,
+                                   int nch, int supers, int ntx, int nty,
+                                   unsigned long long* stamps, void* stream) {
+  switch (variant) {
+    case 0:
+      return launch_bin<8, 4, 4, true>(MR_BIN_ARGS, 8, stream, stamps);
+    case 1:
+      return launch_bin<kBinWarps, kBinMinBlocks, kBinTyLarge, true>(
+          MR_BIN_ARGS, kBinCluster, stream, stamps);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+#undef MR_BIN_ARGS

@@ -323,6 +323,122 @@ def test_raster_bin_matches_plain(dev, chunk, supers, h, w):
     assert torch.equal(torch.where(live, got, 0), torch.where(live, lists, 0))
 
 
+def _bin_against_plain(dev, cbox, h, w, supers=1):
+    """BIN on the chunk boxes ``cbox`` (N, 4, nch), one launch, against
+    the plain lists of the same boxes on the CPU: counts and list
+    prefixes equal. Returns the counts."""
+    want, want_n = binned.tile_lists(cbox, h, w, supers)
+    before = binned.BIN.launches
+    got, got_n = binned.tile_lists(cbox.to(dev), h, w, supers)
+    assert binned.BIN.launches == before + 1
+    got, got_n = got.cpu(), got_n.cpu()
+    assert got.shape == want.shape
+    assert torch.equal(got_n, want_n)
+    live = torch.arange(want.shape[-1]) < want_n[..., None]
+    assert torch.equal(torch.where(live, got, 0), torch.where(live, want, 0))
+    return want_n
+
+
+def _random_boxes(n, nch, seed):
+    """(n, 4, nch) float32 chunk boxes: centres over the screen and past
+    it, half-sizes from under a pixel to past the frame; every 7th box
+    empty (the inverted box of padding records)."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-1.3, 1.3, (n, 2, nch))
+    half = rng.exponential(0.04, (n, 2, nch)) * rng.choice(
+        [1.0, 10.0], (n, 2, nch), p=[0.9, 0.1])
+    box = np.stack([c[:, 0] - half[:, 0], c[:, 0] + half[:, 0],
+                    c[:, 1] - half[:, 1], c[:, 1] + half[:, 1]], 1)
+    box[..., 3::7] = np.array([3e38, -3e38, 3e38, -3e38])[:, None]
+    return torch.from_numpy(box.astype(np.float32))
+
+
+# BIN's sizes: a run is 32 groups, a staged batch 32 runs (1,024 groups),
+# a round 512 runs (16,384 groups); a cluster's 8 CTAs of 8 warps build
+# 128 runs of the coarse level a pass, two a warp (4,096 groups)
+@pytest.mark.parametrize("groups", [0, 1, 31, 33, 1023, 1025, 4095, 4097,
+                                    16383, 16385])
+@pytest.mark.parametrize("supers", [1, 3])
+def test_raster_bin_group_counts(dev, groups, supers):
+    """BIN at group counts just under and over its run, batch, cluster
+    pass and round sizes, zero included, on a 4 x 5 tile grid (partial
+    CTA rows and columns), against the plain lists."""
+    cbox = _random_boxes(2, groups * supers, seed=groups + supers)
+    counts = _bin_against_plain(dev, cbox, 50, 70, supers)
+    assert groups == 0 or counts.sum() > 0
+
+
+@pytest.mark.parametrize("n", [1, 16])
+@pytest.mark.parametrize("h,w", [(480, 640), (50, 70), (96, 128),
+                                 (16, 4112)])
+def test_raster_bin_cameras_and_grids(dev, n, h, w):
+    """BIN at 1 and 16 cameras on tile grids of 30 x 40 (partial CTA
+    rows), 4 x 5, 6 x 8 and 1 x 257 tiles (a row past the 256 tiles BIN
+    keeps in shared memory), against the plain lists."""
+    cbox = _random_boxes(n, 3000, seed=n * h)
+    assert _bin_against_plain(dev, cbox, h, w).sum() > 0
+
+
+def test_raster_bin_every_tile_every_group(dev):
+    """A soup of triangles that each cover the whole screen: every tile
+    lists every group, through SETUP (bitwise) and BIN (one launch each)
+    against the plain binning."""
+    cams = torch.from_numpy(problems.make_camera(eye=(0, 0, 0))).to(dev)
+    cams = cams[None].repeat(3, 1, 1)
+    tri = np.array([[-300.0, -300.0, -5.0], [300.0, -300.0, -5.0],
+                    [0.0, 300.0, -5.0]], np.float32)
+    soup = torch.from_numpy(np.repeat(tri[None], 100, 0)).to(dev)
+    valid = torch.ones(100, dtype=torch.bool, device=dev)
+    before = (binned.SETUP.launches, binned.BIN.launches)
+    bins = binned.bin_soup(cams, soup, valid, 96, 128)
+    assert (binned.SETUP.launches, binned.BIN.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = binned.pack_records(cams, soup, valid)
+    assert _bits_equal(bins["packed"], plain)
+    ngroups = bins["lists"].shape[-1]
+    assert ngroups == 25
+    assert bool((bins["counts"] == ngroups).all())
+    assert torch.equal(bins["lists"], torch.arange(
+        ngroups, dtype=torch.int32, device=dev).expand_as(bins["lists"]))
+
+
+def test_raster_binning_zero_records(dev):
+    """No triangles: SETUP and BIN launch once each, every count is 0."""
+    cams = _cams(1, 3, dev)
+    soup = torch.zeros((0, 3, 3), device=dev)
+    valid = torch.zeros(0, dtype=torch.bool, device=dev)
+    before = (binned.SETUP.launches, binned.BIN.launches)
+    bins = binned.bin_soup(cams, soup, valid, 50, 70)
+    assert (binned.SETUP.launches, binned.BIN.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert bins["packed"].shape == (4, 16, 0)
+    assert bins["lists"].shape == (4, 20, 0)
+    assert bool((bins["counts"] == 0).all())
+
+
+def test_raster_binning_65k_sphere_16_cameras(dev):
+    """The main path's largest shape: the 65,536-triangle sphere seen by
+    the flow update's 16 cameras at 640x480, chunk 8: SETUP bitwise
+    against pack_records, BIN's counts and list prefixes against
+    bin_chunks, one launch each."""
+    soup, valid = (torch.from_numpy(a).to(dev) for a in
+                   state.pack_soup(problems.sphere_soup(128, 256)))
+    cams = _cams(4, 3, dev)
+    before = binned.SETUP.launches
+    packed, cbox = binned.setup_records(cams, soup, valid)
+    assert binned.SETUP.launches == before + 1
+    plain = binned.pack_records(cams, soup, valid)
+    assert _bits_equal(packed, plain)
+    boxes = plain[:, 12], plain[:, 13], plain[:, 14], plain[:, 15]
+    lists, counts = binned.bin_chunks(*boxes, 480, 640)
+    before = binned.BIN.launches
+    got, got_counts = binned.tile_lists(cbox, 480, 640)
+    assert binned.BIN.launches == before + 1
+    assert torch.equal(got_counts, counts) and counts.sum() > 0
+    live = torch.arange(lists.shape[-1], device=dev) < counts[..., None]
+    assert torch.equal(torch.where(live, got, 0), torch.where(live, lists, 0))
+
+
 def test_binning_never_takes_the_eager_setup_or_sort(dev, monkeypatch):
     """On the card the renders bin with SETUP and BIN only: with the plain
     setup and the sort patched to raise, they still equal render_depth."""

@@ -81,3 +81,20 @@ def test_kernel_variants_needs_the_card(monkeypatch):
     src = kernel_variants.SOURCE.read_text()
     assert "MR_EXPORT int mr_variant_k3b(" in src
     assert "MR_EXPORT int mr_variant_r2(" in src
+
+
+def test_kernel_variants_refuses_unknown_kernels():
+    """--kernels takes the tool's sections only (k3b, r2, setup, bin,
+    bin_split), and says so before it looks for the card; the variants'
+    source declares the binning entries it binds."""
+    from meshrecon_torch.tools import kernel_variants
+
+    with pytest.raises(SystemExit):
+        kernel_variants.main(["--kernels", "setup,sort"])
+    assert kernel_variants.KERNELS == ("k3b", "r2", "setup", "bin",
+                                       "bin_split")
+    src = kernel_variants.SOURCE.read_text()
+    for entry in ("mr_variant_setup", "mr_variant_bin",
+                  "mr_variant_bin_timed"):
+        assert f"MR_EXPORT int {entry}(" in src
+    assert '#include "raster_setup.cu"' in src
