@@ -90,7 +90,13 @@ against this tree's in the same alternating rounds, and must equal them
    B=4, its bound taking the tool's graph launch floor; its ``depth0``
    stage must fire at most 20 device events; its ``all`` stage
    against ``FusedMainUpdate`` on the same inputs within
-   meshrecon_torch/parity.py's bounds.
+   meshrecon_torch/parity.py's bounds. Then the bands phase (the tile
+   axis's forms of the kernels, ``band_phase``): K1's row window at 16
+   cameras on the 16k sphere (bands of 120 rows, rows not aligned to the
+   16-row tile, one row, the whole frame), K2's band output (a band's
+   coordinates, whole sources) and K3's and K3b's bands (flows reaching
+   past the next band), each bitwise against the whole frame's rows and
+   against its plain version (K2's bilinear and K3b 1e-4), with its ms.
 4. The solver check (the multigrid solver's path on the card): at
    12x240x320, ``hs_solve_mg`` (2 cycles) and 60 K6 sweeps against a
    1,500-sweep K6 fixed point; the multigrid error must beat the 60-sweep
@@ -192,8 +198,14 @@ against this tree's in the same alternating rounds, and must equal them
    as two scenes through ``reconstruct_scenes`` at once (``scene_devices
    =2``: a thread a scene) and one after another, each mesh within the
    default's bound, walls and stage splits printed; ``baseline_configs
-   c5``; ``--mesh-devices 2`` refused on one GPU. Its figures are one JSON
-   line ``{"sharding": ...}``.
+   c5``; ``--mesh-devices 2`` refused on one GPU. After the camera axis,
+   the tile axis (``tile_runs``): ``sharded_fused_update`` on ``[cuda:0] *
+   4`` as (camera, tile) (2, 2) and (1, 4) at 640x480, K=3, B=4, and (1, 4)
+   at 1080x1920, K=3, B=1, each bitwise against the unsharded update on
+   the card, SETUP, BIN, K1, K2, K3 and K4 launched, the ms of two calls
+   (one card: the exchanges' cost, no speedup) and the MB its exchanges
+   copied between bands a call. Its figures are one JSON line
+   ``{"sharding": ...}``.
 13. Prints one JSON line of per-kernel results, then the device line
    ``{"ok": true, "device": {...}}`` last. Each kernel's ``launches`` is
    the count of the path it serves, read just after that path's run with
@@ -232,6 +244,7 @@ SEED = 0
 # config 5 (tools/baseline_configs.py c5): scenes x main cameras, sides,
 # frame size
 C5 = dict(s=8, b=2, k=2, h=240, w=320)
+TILE_HD = (1080, 1920)  # the tile axis's 1080p run: (rows, columns)
 GRAPH_CALLS = 100  # calls in the CUDA graph that gives a device time
 ROUNDS = 7  # alternating rounds of a kernel against its yardstick
 DEPTH0_EVENTS = 20  # the breakdown's depth0: cameras, binning, K1
@@ -602,6 +615,133 @@ def kernel_phases(torch, dev, res, slice_args):
                                            + 14 * fb.K4_SWEEP_OPS) * npx))
 
 
+def band_phase(torch, dev, res, slice_args):
+    """The tile axis's band forms of the kernels (sharding/tiles.py), at
+    the flow update's shapes (640x480, B=4, K=3) and 4 bands of 120 rows:
+    K1's row window (16 cameras, the 16k sphere; bands, rows not aligned
+    to the 16-row tile, one row, the whole frame) bitwise against the
+    whole render's rows and the plain render's window; K2's band output
+    (a band's coordinates, whole sources) bitwise against the whole
+    frame's rows and against its plain version (nearest bitwise, bilinear
+    1e-4); K3 and K3b on a band from the source rows its samples reach,
+    flows reaching past the next band, bitwise against the whole frame's
+    rows (K3 also against ``bilinear_warp``'s band, K3b within 1e-4 of
+    ``flow_remap``'s). Each window's kernel ms beside the whole frame's."""
+    from meshrecon_torch import problems, state
+    from meshrecon_torch.flow import tile_warp
+    from meshrecon_torch.flow.remap import bilinear_warp, flow_remap
+    from meshrecon_torch.raster import binned, rasterizer
+    from meshrecon_torch.raster.fragment import (bilinear_sample,
+                                                 dilate3x3_max,
+                                                 nearest_sample)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 18)
+    cams = torch.cat([slice_args[2][:, None], slice_args[4]], 1).reshape(
+        B * (K + 1), 4, 4)
+    soup, valid = (torch.from_numpy(a).to(dev) for a in
+                   state.pack_soup(problems.sphere_soup(64, 128)))
+    whole = binned.render_depth_binned(cams, soup, valid, H, W)
+    whole_ms = _cuda_ms(torch, lambda: binned.render_depth_binned(
+        cams, soup, valid, H, W), 10)
+    # the plain render takes seconds a frame: held on three windows
+    for rows in ((0, 120), (120, 240), (360, 480), (5, 37), (100, 101),
+                 (0, H)):
+        out = binned.render_depth_binned(cams, soup, valid, H, W, rows=rows)
+        torch.cuda.synchronize()
+        same = torch.equal(out, whole[:, rows[0]:rows[1]])
+        ms = _cuda_ms(torch, lambda: binned.render_depth_binned(
+            cams, soup, valid, H, W, rows=rows), 10)
+        print(f"raster_tiles rows {rows} [{len(cams)}x{H}x{W}, 16k tris]: "
+              f"{ms:.4f} ms (whole frame {whole_ms:.4f} ms), the whole "
+              f"render's rows bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"K1's window {rows} differs from the whole "
+                                 "render's rows")
+        if rows in ((120, 240), (5, 37), (100, 101)):
+            t_plain = time.perf_counter()
+            plain = rasterizer.render_depth(cams, soup, valid, H, W,
+                                            rows=rows)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t_plain) * 1e3
+            res.add(binned.K1, f"rows {rows}",
+                    (out - plain).abs().max().item(), 0.0, ms, plain_ms)
+
+    n = B * K
+    depth_sides = whole.reshape(B, K + 1, H, W)[:, 1:].reshape(n, H, W)
+    shadow = dilate3x3_max(depth_sides).contiguous()
+    frames = slice_args[5].reshape(n, H, W).contiguous()
+    cols = torch.arange(W, dtype=torch.float32, device=dev)
+    rows_f = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    scol = (cols + 1.3 + _smooth_field(torch, gen, (n, H, W), 40.0,
+                                       dev)).contiguous()
+    srow = (rows_f - 0.7 + _smooth_field(torch, gen, (n, H, W), 30.0,
+                                         dev)).contiguous()
+    for bilinear_a in (False, True):
+        full = tile_warp.tile_warp_sample2_batched(shadow, frames, scol, srow,
+                                                   bilinear_a)
+        for r0, r1 in ((120, 240), (7, 41)):
+            bc = scol[:, r0:r1].contiguous()
+            br = srow[:, r0:r1].contiguous()
+            a_k, b_k = tile_warp.tile_warp_sample2_batched(
+                shadow, frames, bc, br, bilinear_a)
+            a_p = (bilinear_sample if bilinear_a else nearest_sample)(
+                shadow, bc, br)
+            b_p = bilinear_sample(frames, bc, br)
+            torch.cuda.synchronize()
+            same = (torch.equal(a_k, full[0][:, r0:r1])
+                    and torch.equal(b_k, full[1][:, r0:r1]))
+            ms = _cuda_ms(torch, lambda: tile_warp.tile_warp_sample2_batched(
+                shadow, frames, bc, br, bilinear_a), 50)
+            plain_ms = _cuda_ms(torch, lambda: (
+                (bilinear_sample if bilinear_a else nearest_sample)(
+                    shadow, bc, br), bilinear_sample(frames, bc, br)), 5)
+            mode = "bilinear shadow" if bilinear_a else "nearest"
+            print(f"sample_shadow_frame band [{r0}, {r1}) {mode}: {ms:.4f} "
+                  f"ms, the whole frame's rows bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"K2's band [{r0}, {r1}) differs from "
+                                     "the whole frame's rows")
+            res.add(tile_warp.K2, f"band [{r0}, {r1}) {mode}, A",
+                    (a_k - a_p).abs().max().item(), 1e-4 if bilinear_a else 0,
+                    ms, plain_ms)
+            res.add(tile_warp.K2, f"band [{r0}, {r1}) {mode}, B",
+                    (b_k - b_p).abs().max().item(), 1e-4, ms, plain_ms)
+
+    img = (127.5 + _smooth_field(torch, gen, (n, H, W), 120.0,
+                                 dev)).contiguous()
+    u = _smooth_field(torch, gen, (n, H, W), 3.0, dev).contiguous()
+    v = (_smooth_field(torch, gen, (n, H, W), 3.0, dev) + 127.3).contiguous()
+    for taps, kernel in ((2, tile_warp.K3), (4, tile_warp.K3B)):
+        full = tile_warp.tile_warp_flow_batched(img, u, v, taps)
+        lo, hi = 120, 240
+        reach = int(np.ceil(v.abs().max().item())) + taps // 2
+        w0, w1 = max(lo - reach, 0), min(hi + reach, H)
+        band = dict(row0=lo, height=H, src_row0=w0)
+        args = (img[:, w0:w1].contiguous(), u[:, lo:hi].contiguous(),
+                v[:, lo:hi].contiguous())
+        out = tile_warp.tile_warp_flow_batched(*args, taps, **band)
+        flow = torch.stack(args[1:], -1)
+        plain = (bilinear_warp(args[0], flow, **band) if taps == 2
+                 else flow_remap(flow, args[0], **band))
+        torch.cuda.synchronize()
+        same = torch.equal(out, full[:, lo:hi])
+        ms = _cuda_ms(torch, lambda: tile_warp.tile_warp_flow_batched(
+            *args, taps, **band), 50)
+        plain_ms = _cuda_ms(torch, lambda: bilinear_warp(
+            args[0], flow, **band) if taps == 2 else flow_remap(
+                flow, args[0], **band), 5)
+        print(f"{kernel.name} band [{lo}, {hi}) from rows [{w0}, {w1}) "
+              f"(|v| to {v.abs().max().item():.1f} px): {ms:.4f} ms, the "
+              f"whole frame's rows bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"{kernel.name}'s band differs from the "
+                                 "whole frame's rows")
+        res.add(kernel, f"band [{lo}, {hi})", (out - plain).abs().max().item(),
+                0.0 if taps == 2 else 1e-4, ms, plain_ms)
+    print(f"phase bands: {time.perf_counter() - t0:.1f} s")
+
+
 def _blocked_phase(torch, name, label, call, plain, iters, h, w,
                    graph_calls=20):
     """A blocked Horn-Schunck kernel (``call()``: its default sweeps a
@@ -887,8 +1027,9 @@ def build_parent(src):
     """Build another tree's kernel source (the parent commit's
     ``csrc/raster.cu``, ``warp.cu`` or ``roofline.cu``) alone, with the
     port's nvcc flags, into build/chip_smoke/ and load it through ctypes
-    (its entries have this tree's signatures); prints the compiler's
-    register report."""
+    (its entries have this tree's signatures, or, in a source from before
+    the tile axis's bands, K1's and K3b's without their band arguments:
+    ``pre_band``); prints the compiler's register report."""
     from meshrecon_torch.kernels import _build
 
     src = Path(src).resolve()
@@ -904,7 +1045,15 @@ def build_parent(src):
     for line in (done.stdout + done.stderr).splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"ptxas (parent): {line.strip()}")
-    return ctypes.CDLL(str(out))
+    lib = ctypes.CDLL(str(out))
+    text = src.read_text()
+    lib.pre_band = "row_lo" not in text and "src_row0" not in text
+    return lib
+
+
+# K1's and K3b's entries in a tree from before the tile axis's bands
+_PRE_BAND = {"mr_raster_tiles": "PPPPPPPPPP" + "IIIIIII" + "P",
+             "mr_warp_bicubic": "PPPP" + "III" + "P"}
 
 
 def build_parent_binding(src):
@@ -965,8 +1114,10 @@ def _c_entry(lib, name):
     from meshrecon_torch.kernels._build import _SIGNATURES
 
     fn = getattr(lib, name)
+    signature = (_PRE_BAND[name] if getattr(lib, "pre_band", False)
+                 and name in _PRE_BAND else _SIGNATURES[name])
     fn.argtypes = [{"P": ctypes.c_void_p, "I": ctypes.c_int,
-                    "F": ctypes.c_float}[kind] for kind in _SIGNATURES[name]]
+                    "F": ctypes.c_float}[kind] for kind in signature]
     fn.restype = ctypes.c_int
 
     def call(*args):
@@ -992,6 +1143,8 @@ def _raster_entry(torch, lib, bins):
     if bins["cbox"] is None:
         args = [packed.data_ptr(), lists.data_ptr(), counts.data_ptr(), *ptrs,
                 n, n_rec, lists.shape[-1], h, w, binned.TILE, bins["chunk"]]
+        if not getattr(lib, "pre_band", False):
+            args += [0, h]  # the whole frame's rows
     else:
         args = [packed.data_ptr(), bins["cbox"].data_ptr(), lists.data_ptr(),
                 counts.data_ptr(), *ptrs, n, n_rec, lists.shape[-1], h, w,
@@ -1465,7 +1618,8 @@ def k3b_phase(torch, dev, res, args_np, parent=None):
         if parent_k3b is not None:
             p_out = torch.empty_like(img)
             p_args = (img.data_ptr(), u.data_ptr(), v.data_ptr(),
-                      p_out.data_ptr(), n, H, W)
+                      p_out.data_ptr(), n, H, W) + (
+                () if parent.pre_band else (0, H, 0, H))
 
             def parent_call():
                 # the stream at call time: a graph captures on its own
@@ -2770,6 +2924,55 @@ def _equal_outputs(torch, ours, ref, keys):
     return all(torch.equal(ours[k], ref[k]) for k in keys)
 
 
+def tile_runs(torch, dev, args_np, kernels, render, k2_k4, twice):
+    """The tile axis (sharding/tiles.py) on one card: the tile-sharded
+    ``sharded_fused_update`` at 640x480, K=3, B=4 on ``[cuda:0] * 4`` as
+    (camera, tile) = (2, 2) and (1, 4), and at 1080x1920, K=3, B=1 as (1,
+    4), each call timed twice, bitwise against the unsharded update on the
+    card (its ms beside); SETUP, BIN, K1, K2, K3 and K4 must launch. One
+    card is one GPU: these times show the exchanges' cost, no speedup.
+    Prints the MB the exchanges copied between bands a call and the runs'
+    seconds; returns their figures."""
+    from meshrecon_torch import problems, state
+    from meshrecon_torch.pipeline.fused import fused_main_update_batched
+    from meshrecon_torch.sharding import make_device_mesh, sharded_fused_update
+
+    t0 = time.perf_counter()
+    keys = ("point4", "normals", "pdf", "valid", "depth")
+    big = list(problems.fused_problem(1, K, TILE_HD[0], TILE_HD[1],
+                                      seed=SEED))
+    big[0], big[1] = args_np[0], args_np[1]
+    out_runs = {}
+    for b, (h, w), meshes, inputs in (
+            (B, (H, W), ((2, 2), (1, 4)), args_np),
+            (1, TILE_HD, ((1, 4),), big)):
+        args = state.from_numpy(inputs, dev)
+        ref, ref_ms = twice(lambda *a: fused_main_update_batched(*a, h, w),
+                            *args)
+        print(f"tile axis: unsharded update B={b} K={K} {w}x{h}: ms {ref_ms}")
+        for n_camera, n_tile in meshes:
+            label = f"tile ({n_camera}, {n_tile}) B={b} K={K} {w}x{h}"
+            step = sharded_fused_update(make_device_mesh(
+                n_camera, n_tile, devices=[dev] * (n_camera * n_tile)), h, w)
+            out, ms = twice(step, *args)
+            _launched(kernels, (*render, *k2_k4), label)
+            equal = _equal_outputs(torch, out, ref, keys)
+            mb = sum(g.exchanged for g in step.tile_groups) / 2 / 1e6
+            starts = step.tile_groups[0].starts
+            print(f"{label} [{n_camera * n_tile} x {dev}, bands {starts}]: "
+                  f"ms {ms} (unsharded {ref_ms}), exchanges {mb:.3f} MB a "
+                  f"call, bitwise equal to the unsharded update: {equal}")
+            out_runs[f"{n_camera}x{n_tile}_{w}x{h}_b{b}"] = dict(
+                ms=ms, unsharded_ms=ref_ms, exchanged_mb=mb, bitwise=equal)
+            if not equal:
+                raise AssertionError(f"{label} differs from "
+                                     "fused_main_update_batched")
+        del ref, out, args
+    out_runs["seconds"] = time.perf_counter() - t0
+    print(f"tile axis runs: {out_runs['seconds']:.1f} s")
+    return out_runs
+
+
 def sharding_phase(torch, dev, args_np, render, k2_k4, k3c):
     """The sharded paths on one card (meshrecon_torch/sharding), each shard
     of a mesh that names cuda:0 more than once running in a thread of its own:
@@ -2783,8 +2986,8 @@ def sharding_phase(torch, dev, args_np, render, k2_k4, k3c):
     ``sharded_plane_sweep`` with 8 sides at 640x480 and 64 depths on
     ``[cuda:0] * n`` (n in SHARD_WINDOWS) against ``plane_sweep_depth`` at
     the CPU test's bounds (depth atol 1e-5; cost rtol 1e-5, atol 1e-4;
-    valid equal); each sharded call timed twice (the first starts its
-    threads); koule-tr as two synthetic scenes (each the CLI's at its seed
+    valid equal); the tile axis (:func:`tile_runs`); each sharded call
+    timed twice (the first starts its threads); koule-tr as two synthetic scenes (each the CLI's at its seed
     of SHARD_SCENE_SEEDS: its frames and camera draw; 640x480, -n 2,
     hybrid) through ``reconstruct_scenes`` with ``scene_devices=2`` (both
     scenes at once, a thread each, on the one device here) and 1 (one after
@@ -2845,6 +3048,8 @@ def sharding_phase(torch, dev, args_np, render, k2_k4, k3c):
             raise AssertionError(f"sharded_fused_update n={n} differs from "
                                  "fused_main_update_batched")
     del ref, out
+    summary["tile"] = tile_runs(torch, dev, args_np, kernels, render, k2_k4,
+                                twice)
 
     # the scene axis at config 5's shape
     c5 = C5
@@ -3085,6 +3290,7 @@ def main(argv=None) -> int:
     breakdown_phase(torch, dev, roof["launch_graph_us"])
     k3b_phase(torch, dev, res, args_np, parent.get("warp"))
     k6_phase(torch, dev, res)
+    band_phase(torch, dev, res, state.from_numpy(args_np, dev))
     torch.cuda.synchronize()
     solver_launches = solver_check(torch, dev)
 

@@ -32,14 +32,15 @@ using I = int;
 using F = float;
 
 extern "C" {
-int mr_raster_tiles(P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P);
+int mr_raster_tiles(P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                    P);
 int mr_raster_tiles2(P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                      P);
 int mr_raster_setup(P, P, P, P, P, I, I, I, I, P);
 int mr_raster_bin(P, P, P, P, P, P, P, I, I, I, I, I, P);
-int mr_sample_shadow_frame(P, P, P, P, P, P, I, I, I, I, P);
-int mr_warp_bilinear(P, P, P, P, I, I, I, P);
-int mr_warp_bicubic(P, P, P, P, I, I, I, P);
+int mr_sample_shadow_frame(P, P, P, P, P, P, I, I, I, I, I, P);
+int mr_warp_bilinear(P, P, P, P, I, I, I, I, I, I, I, P);
+int mr_warp_bicubic(P, P, P, P, I, I, I, I, I, I, I, P);
 int mr_sample_bilinear_masked(P, P, P, P, P, I, I, I, P);
 int mr_hs_sweep(P, P, P, P, P, P, P, P, P, P, P, P, P, I, F, I, I, I, P);
 int mr_hs_jacobi_fields(P, P, P, P, P, P, P, I, F, I, I, I, P);

@@ -52,6 +52,14 @@
 // chunk of the listed superchunks against the tile, the chunks that hit
 // are compacted in list order, and their records are the candidates.
 //
+// K1 renders a window of rows [row_lo, row_hi) into an (n_cams, row_hi -
+// row_lo, width) buffer (a band of a tile group, sharding/tiles.py): CTAs
+// run only for the tiles that meet the window, each tile at its global
+// place with its global sample positions and list, so every pixel walks
+// the same records in the same order as in the whole render and its depth
+// is the same bits. A warp whose footprint misses the window skips its
+// walk. The whole frame is the window [0, height).
+//
 // Arithmetic: l = a*px + b*py + c and z = l0*z0 + l1*z1 + l2*z2 use
 // explicitly rounded multiplies and adds in the plain version's order, so
 // no FMA contraction can flip an edge test at a silhouette.
@@ -138,26 +146,28 @@ struct Pixel {
   Extent foot;    // the warp's footprint's sample extents
 };
 
+// ty: the tile's row of tiles; a footprint is live where it meets the
+// image's columns and the window's rows [row_lo, row_hi).
 __device__ __forceinline__ Pixel pixel_of(const float* __restrict__ px,
                                           const float* __restrict__ py,
                                           const float* __restrict__ tx0,
                                           const float* __restrict__ tx1,
                                           const float* __restrict__ ty0,
                                           const float* __restrict__ ty1,
-                                          int height, int width) {
+                                          int height, int width, int ty,
+                                          int row_lo, int row_hi) {
   Pixel p;
   p.tid = threadIdx.x;
   p.lane = p.tid & 31;
   p.warp = p.tid >> 5;
   const int c0 = blockIdx.x * kTile + (p.warp % kFootCols) * kFootW;
-  const int r0 = blockIdx.y * kTile + (p.warp / kFootCols) * kFootH;
+  const int r0 = ty * kTile + (p.warp / kFootCols) * kFootH;
   p.col = c0 + p.lane % kFootW;
   p.row = r0 + p.lane / kFootW;
-  p.live = c0 < width && r0 < height;
+  p.live = c0 < width && r0 < row_hi && r0 + kFootH > row_lo;
   p.px = px[min(p.col, width - 1)];
   p.py = py[min(p.row, height - 1)];
-  p.tile = {tx0[blockIdx.x], tx1[blockIdx.x], ty0[blockIdx.y],
-            ty1[blockIdx.y]};
+  p.tile = {tx0[blockIdx.x], tx1[blockIdx.x], ty0[ty], ty1[ty]};
   // px rises with the column and py falls with the row: the footprint's
   // extents are its first and last lanes' clamped samples
   p.foot = {__shfl_sync(0xffffffffu, p.px, 0),
@@ -222,12 +232,14 @@ __device__ __forceinline__ float walk_records(Stage& s, int n,
   return zbuf;
 }
 
+// out holds rows [row_lo, row_hi) of each camera's render
 __device__ __forceinline__ void store_depth(float* __restrict__ out,
-                                            const Pixel& p, int height,
-                                            int width, float zbuf) {
-  if (p.row < height && p.col < width) {
-    out[((long long)blockIdx.z * height + p.row) * width + p.col] =
-        isinf(zbuf) ? 1.0f : zbuf;
+                                            const Pixel& p, int width,
+                                            int row_lo, int row_hi,
+                                            float zbuf) {
+  if (p.row >= row_lo && p.row < row_hi && p.col < width) {
+    out[((long long)blockIdx.z * (row_hi - row_lo) + p.row - row_lo) *
+            width + p.col] = isinf(zbuf) ? 1.0f : zbuf;
   }
 }
 
@@ -244,17 +256,19 @@ raster_tiles_kernel(const float* __restrict__ packed,
                     const float* __restrict__ ty0,
                     const float* __restrict__ ty1, float* __restrict__ out,
                     int n_rec, int n_chunks, int height, int width, int ntx,
-                    int nty) {
+                    int nty, int row_lo, int row_hi) {
   __shared__ Stage s;
-  const Pixel p = pixel_of(px, py, tx0, tx1, ty0, ty1, height, width);
-  const long long slot = ((long long)blockIdx.z * nty + blockIdx.y) * ntx +
+  const int ty = row_lo / kTile + blockIdx.y;  // the window's tiles only
+  const Pixel p = pixel_of(px, py, tx0, tx1, ty0, ty1, height, width, ty,
+                           row_lo, row_hi);
+  const long long slot = ((long long)blockIdx.z * nty + ty) * ntx +
                          blockIdx.x;
   const int* list = lists + slot * n_chunks;
   const float* recs = packed + (long long)blockIdx.z * kFields * n_rec;
   const float zbuf = walk_records<kChunk>(
       s, counts[slot] * kChunk, [list](int i) { return list[i]; }, recs,
       n_rec, p, INFINITY);
-  store_depth(out, p, height, width, zbuf);
+  store_depth(out, p, width, row_lo, row_hi, zbuf);
 }
 
 template <int kChunk>
@@ -273,7 +287,8 @@ raster_tiles2_kernel(const float* __restrict__ packed,
                      int ntx, int nty) {
   __shared__ Stage s;
   __shared__ int hits[kThreads];  // chunk ids that hit, in list order
-  const Pixel p = pixel_of(px, py, tx0, tx1, ty0, ty1, height, width);
+  const Pixel p = pixel_of(px, py, tx0, tx1, ty0, ty1, height, width,
+                           blockIdx.y, 0, height);
   const long long slot = ((long long)blockIdx.z * nty + blockIdx.y) * ntx +
                          blockIdx.x;
   const int count = counts[slot];
@@ -312,7 +327,7 @@ raster_tiles2_kernel(const float* __restrict__ packed,
         s, n_hit * kChunk, [](int i) { return hits[i]; }, recs, n_rec,
         p, zbuf);
   }
-  store_depth(out, p, height, width, zbuf);
+  store_depth(out, p, width, 0, height, zbuf);
 }
 
 }  // namespace
@@ -329,24 +344,28 @@ raster_tiles2_kernel(const float* __restrict__ packed,
 
 // packed (n_cams, 16, n_rec); lists (n_cams, nty*ntx, n_chunks);
 // counts (n_cams, nty*ntx); px (width,); py (height,); tx0/tx1 (ntx,);
-// ty0/ty1 (nty,); out (n_cams, height, width). chunk in {8, 16, 32, 64}.
+// ty0/ty1 (nty,); out (n_cams, row_hi - row_lo, width): rows [row_lo,
+// row_hi) of each render, 0 <= row_lo < row_hi <= height. chunk in {8, 16,
+// 32, 64}.
 MR_EXPORT int mr_raster_tiles(const float* packed, const int* lists,
                               const int* counts, const float* px,
                               const float* py, const float* tx0,
                               const float* tx1, const float* ty0,
                               const float* ty1, float* out, int n_cams,
                               int n_rec, int n_chunks, int height, int width,
-                              int tile, int chunk, void* stream) {
-  if (tile != kTile || (long long)n_rec != (long long)n_chunks * chunk) {
+                              int tile, int chunk, int row_lo, int row_hi,
+                              void* stream) {
+  if (tile != kTile || (long long)n_rec != (long long)n_chunks * chunk ||
+      row_lo < 0 || row_hi > height || row_lo >= row_hi) {
     return (int)cudaErrorInvalidValue;
   }
   const int ntx = (width + kTile - 1) / kTile;
   const int nty = (height + kTile - 1) / kTile;
-  dim3 grid(ntx, nty, n_cams);
+  dim3 grid(ntx, (row_hi - 1) / kTile - row_lo / kTile + 1, n_cams);
   cudaStream_t s = (cudaStream_t)stream;
   MR_CHUNK_SWITCH(raster_tiles_kernel, packed, lists, counts, px, py, tx0,
                   tx1, ty0, ty1, out, n_rec, n_chunks, height, width, ntx,
-                  nty)
+                  nty, row_lo, row_hi)
   return (int)cudaGetLastError();
 }
 

@@ -31,6 +31,17 @@
 // by zero, and invalid pixels (behind the side camera, off its frame) hold
 // arbitrary coordinates, so the kernel skips their taps altogether.
 //
+// Bands (sharding/tiles.py: image rows split over a tile group). K2 writes
+// an output plane apart from its source plane: the coordinate fields and
+// the outputs are (n, rows, width), rows of a band whose coordinates are
+// absolute, and the sources are (n, height, width). K3 and K3b take the
+// band's place in the image: u, v and out hold rows [row0, row0 + rows) of
+// an image of `height` rows, and the source holds rows [src_row0, src_row0
+// + src_rows) of it, which must hold every tap. A pixel's sample row is its
+// global row plus v, rounded as in the whole image (a local row would round
+// r + v otherwise), and the border clamps act at the image's edges. The
+// whole frame is rows = src_rows = height, row0 = src_row0 = 0.
+//
 // What bounds them here: K2, K3 and K3c device-memory bandwidth. K2 reads
 // 4 floats per pixel of coordinates and sources' taps and writes 2; K3
 // reads 3 and writes 1; K3c reads 2 floats and a byte, plus the taps where
@@ -75,11 +86,11 @@ sample_shadow_frame_kernel(const float* __restrict__ shadow,
                            const float* __restrict__ srow,
                            float* __restrict__ out_shadow,
                            float* __restrict__ out_frame, long long total,
-                           int height, int width) {
+                           int height, int width, int rows) {
   const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (idx >= total) return;
   const long long plane = (long long)height * width;
-  const long long img = idx / plane;
+  const long long img = idx / ((long long)rows * width);
   const float col = scol[idx];
   const float row = srow[idx];
   const float* a = shadow + img * plane;
@@ -103,16 +114,23 @@ sample_shadow_frame_kernel(const float* __restrict__ shadow,
 constexpr int kK3Cols = 32;
 constexpr int kK3Rows = 8;
 
-// mr_bilinear with the taps read through the read-only cache
+// mr_bilinear with the taps read through the read-only cache; h is the
+// image's rows and img points at its row src_row0 (where the source starts)
 __device__ __forceinline__ float bilinear_ldg(const float* __restrict__ img,
                                               float col, float row, int h,
-                                              int w) {
+                                              int w, int src_row0) {
   const MrTaps t = mr_bilinear_taps(col, row, h, w);
-  return mr_bilinear_mix(__ldg(img + t.r0 * w + t.c0),
-                         __ldg(img + t.r0 * w + t.c1),
-                         __ldg(img + t.r1 * w + t.c0),
-                         __ldg(img + t.r1 * w + t.c1), t.fr, t.fc);
+  const int r0 = t.r0 - src_row0, r1 = t.r1 - src_row0;
+  return mr_bilinear_mix(__ldg(img + r0 * w + t.c0),
+                         __ldg(img + r0 * w + t.c1),
+                         __ldg(img + r1 * w + t.c0),
+                         __ldg(img + r1 * w + t.c1), t.fr, t.fc);
 }
+
+// Where a K3 / K3b launch's rows lie in the image (see the note on bands).
+struct Band {
+  int rows, row0, height, src_row0, src_rows;
+};
 
 // kPix consecutive pixels of a row a thread: 4 (float4 loads of u and v, one
 // float4 store; the row's width a multiple of 4) or 1
@@ -120,26 +138,27 @@ template <int kPix>
 __global__ void __launch_bounds__(kK3Cols * kK3Rows)
 warp_bilinear_kernel(const float* __restrict__ image,
                      const float* __restrict__ u, const float* __restrict__ v,
-                     float* __restrict__ out, int height, int width) {
+                     float* __restrict__ out, Band band, int width) {
   const int c = (blockIdx.x * kK3Cols + threadIdx.x) * kPix;
   const int r = blockIdx.y * kK3Rows + threadIdx.y;
-  if (c >= width || r >= height) return;
-  const long long plane = (long long)height * width;
-  const float* src = image + blockIdx.z * plane;
-  const long long at = blockIdx.z * plane + (long long)r * width + c;
-  const float fr = (float)r;
+  if (c >= width || r >= band.rows) return;
+  const int h = band.height, s0 = band.src_row0;
+  const float* src = image + blockIdx.z * ((long long)band.src_rows * width);
+  const long long at =
+      blockIdx.z * ((long long)band.rows * width) + (long long)r * width + c;
+  const float fr = (float)(r + band.row0);
   if (kPix == 4) {
     const float4 du = __ldg(reinterpret_cast<const float4*>(u + at));
     const float4 dv = __ldg(reinterpret_cast<const float4*>(v + at));
     float4 o;
-    o.x = bilinear_ldg(src, (float)c + du.x, fr + dv.x, height, width);
-    o.y = bilinear_ldg(src, (float)(c + 1) + du.y, fr + dv.y, height, width);
-    o.z = bilinear_ldg(src, (float)(c + 2) + du.z, fr + dv.z, height, width);
-    o.w = bilinear_ldg(src, (float)(c + 3) + du.w, fr + dv.w, height, width);
+    o.x = bilinear_ldg(src, (float)c + du.x, fr + dv.x, h, width, s0);
+    o.y = bilinear_ldg(src, (float)(c + 1) + du.y, fr + dv.y, h, width, s0);
+    o.z = bilinear_ldg(src, (float)(c + 2) + du.z, fr + dv.z, h, width, s0);
+    o.w = bilinear_ldg(src, (float)(c + 3) + du.w, fr + dv.w, h, width, s0);
     *reinterpret_cast<float4*>(out + at) = o;
   } else {
     out[at] = bilinear_ldg(src, (float)c + __ldg(u + at), fr + __ldg(v + at),
-                           height, width);
+                           h, width, s0);
   }
 }
 
@@ -173,11 +192,12 @@ __device__ __forceinline__ int cubic_origin(float x, int n) {
 // The twin's sum over the 16 taps, the columns j inside the rows i, each
 // tap at row r0-1+i and column c0-1+j: clamped to the image, or read from
 // one pointer at the window's corner with no clamp (the caller knows the
-// window lies inside). Both read the same taps in the same order.
+// window lies inside). Both read the same taps in the same order. h is the
+// image's rows; src points at its row src_row0.
 template <bool kClamped>
 __device__ __forceinline__ float bicubic_sum(const float* __restrict__ src,
                                              float col, float row, int h,
-                                             int w) {
+                                             int w, int src_row0) {
   const float fc0 = floorf(col);
   const float fr0 = floorf(row);
   float wc[4], wr[4];
@@ -185,7 +205,8 @@ __device__ __forceinline__ float bicubic_sum(const float* __restrict__ src,
   cubic_weights(row - fr0, wr);
   const int c0 = cubic_origin(col, w);
   const int r0 = cubic_origin(row, h);
-  const float* corner = src + (r0 - 1) * w + (c0 - 1);  // unclamped only
+  const float* corner =
+      src + (r0 - 1 - src_row0) * w + (c0 - 1);  // unclamped only
   int cj[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) cj[j] = min(max(c0 + j - 1, 0), w - 1);
@@ -193,7 +214,8 @@ __device__ __forceinline__ float bicubic_sum(const float* __restrict__ src,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float* line =
-        kClamped ? src + min(max(r0 + i - 1, 0), h - 1) * w : corner + i * w;
+        kClamped ? src + (min(max(r0 + i - 1, 0), h - 1) - src_row0) * w
+                 : corner + i * w;
     float row_acc = 0.0f;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -212,17 +234,18 @@ template <bool kCount>
 __global__ void __launch_bounds__(kK3Cols * kK3Rows, kK3bMinBlocks)
 warp_bicubic_kernel(const float* __restrict__ image,
                     const float* __restrict__ u, const float* __restrict__ v,
-                    float* __restrict__ out, int height, int width,
+                    float* __restrict__ out, Band band, int width,
                     int* __restrict__ unclamped) {
   const int c_first = blockIdx.x * (kK3Cols * kK3bPix) + threadIdx.x;
   const int r_want = blockIdx.y * kK3Rows + threadIdx.y;
   // a thread past the edge samples the last row or column and stores
   // nothing: every lane takes part in the warp's vote
-  const int r = min(r_want, height - 1);
-  const long long plane = (long long)height * width;
-  const float* src = image + blockIdx.z * plane;
-  const long long at = blockIdx.z * plane + (long long)r * width;
-  const float fr = (float)r;
+  const int r = min(r_want, band.rows - 1);
+  const int height = band.height, s0 = band.src_row0;
+  const float* src = image + blockIdx.z * ((long long)band.src_rows * width);
+  const long long at =
+      blockIdx.z * ((long long)band.rows * width) + (long long)r * width;
+  const float fr = (float)(r + band.row0);
   float col[kK3bPix], row[kK3bPix];
   bool inside = true;
 #pragma unroll
@@ -240,37 +263,46 @@ warp_bicubic_kernel(const float* __restrict__ image,
     if (kCount && threadIdx.x == 0 && r_want < height) atomicAdd(unclamped, 1);
 #pragma unroll
     for (int k = 0; k < kK3bPix; ++k)
-      o[k] = bicubic_sum<false>(src, col[k], row[k], height, width);
+      o[k] = bicubic_sum<false>(src, col[k], row[k], height, width, s0);
   } else {
 #pragma unroll
     for (int k = 0; k < kK3bPix; ++k)
-      o[k] = bicubic_sum<true>(src, col[k], row[k], height, width);
+      o[k] = bicubic_sum<true>(src, col[k], row[k], height, width, s0);
   }
-  if (r_want >= height) return;
+  if (r_want >= band.rows) return;
 #pragma unroll
   for (int k = 0; k < kK3bPix; ++k)
     if (c_first + kK3Cols * k < width) out[at + c_first + kK3Cols * k] = o[k];
 }
 
+// A band that fits the image and a grid that fits the card.
+bool band_ok(const Band& b, int n, int width) {
+  return n >= 0 && width >= 0 && b.rows >= 0 && b.row0 >= 0 &&
+         b.src_row0 >= 0 && b.src_rows >= 0 &&
+         (long long)b.row0 + b.rows <= b.height &&
+         (long long)b.src_row0 + b.src_rows <= b.height &&
+         b.rows <= 65535LL * kK3Rows &&
+         (long long)b.height * width <= INT_MAX;
+}
+
 template <bool kCount>
 int launch_bicubic(const float* image, const float* u, const float* v,
-                   float* out, int* unclamped, int n, int height, int width,
-                   void* stream) {
-  if (n < 0 || height < 0 || width < 0 || height > 65535LL * kK3Rows ||
-      (long long)height * width > INT_MAX) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if ((long long)n * height * width == 0) return 0;
-  const long long plane = (long long)height * width;
+                   float* out, int* unclamped, int n, const Band& band,
+                   int width, void* stream) {
+  if (!band_ok(band, n, width)) return (int)cudaErrorInvalidValue;
+  if ((long long)n * band.rows * width == 0) return 0;
+  const long long plane = (long long)band.rows * width;
+  const long long src_plane = (long long)band.src_rows * width;
   const dim3 block(kK3Cols, kK3Rows);
   cudaStream_t s = (cudaStream_t)stream;
   for (int z0 = 0; z0 < n; z0 += 65535) {  // gridDim.z <= 65535
     const dim3 grid((width + kK3Cols * kK3bPix - 1) / (kK3Cols * kK3bPix),
-                    (height + kK3Rows - 1) / kK3Rows,
+                    (band.rows + kK3Rows - 1) / kK3Rows,
                     n - z0 < 65535 ? n - z0 : 65535);
     const long long off = z0 * plane;
     warp_bicubic_kernel<kCount><<<grid, block, 0, s>>>(
-        image + off, u + off, v + off, out + off, height, width, unclamped);
+        image + z0 * src_plane, u + off, v + off, out + off, band, width,
+        unclamped);
   }
   return (int)cudaGetLastError();
 }
@@ -296,76 +328,87 @@ sample_bilinear_masked_kernel(const float* __restrict__ image,
 
 }  // namespace
 
-// shadow, frame, scol, srow, out_shadow, out_frame: (n, height, width);
-// bilinear_a != 0 samples the shadow bilinearly, else nearest
+// shadow, frame: (n, height, width); scol, srow, out_shadow, out_frame:
+// (n, rows, width), coordinates in the sources' pixels; bilinear_a != 0
+// samples the shadow bilinearly, else nearest
 MR_EXPORT int mr_sample_shadow_frame(const float* shadow, const float* frame,
                                      const float* scol, const float* srow,
                                      float* out_shadow, float* out_frame,
                                      int bilinear_a, int n, int height,
-                                     int width, void* stream) {
-  const long long total = (long long)n * height * width;
+                                     int width, int rows, void* stream) {
+  if (n < 0 || height < 0 || width < 0 || rows < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long total = (long long)n * rows * width;
   if (total == 0) return 0;
   const int blocks = mr_blocks(total, kThreads);
   cudaStream_t s = (cudaStream_t)stream;
   if (bilinear_a) {
     sample_shadow_frame_kernel<true><<<blocks, kThreads, 0, s>>>(
         shadow, frame, scol, srow, out_shadow, out_frame, total, height,
-        width);
+        width, rows);
   } else {
     sample_shadow_frame_kernel<false><<<blocks, kThreads, 0, s>>>(
         shadow, frame, scol, srow, out_shadow, out_frame, total, height,
-        width);
+        width, rows);
   }
   return (int)cudaGetLastError();
 }
 
-// image, u, v, out: (n, height, width). Four pixels a thread when the
-// width is a multiple of 4 and u, v, out are 16-byte aligned, else one.
+// u, v, out: (n, rows, width), rows [row0, row0 + rows) of an image of
+// `height` rows; image: (n, src_rows, width), its rows [src_row0, src_row0
+// + src_rows), holding every tap. Four pixels a thread when the width is a
+// multiple of 4 and u, v, out are 16-byte aligned, else one.
 MR_EXPORT int mr_warp_bilinear(const float* image, const float* u,
-                               const float* v, float* out, int n, int height,
-                               int width, void* stream) {
-  if (n < 0 || height < 0 || width < 0 ||
-      height > 65535LL * kK3Rows) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if ((long long)n * height * width == 0) return 0;
+                               const float* v, float* out, int n, int rows,
+                               int width, int row0, int height, int src_row0,
+                               int src_rows, void* stream) {
+  const Band band{rows, row0, height, src_row0, src_rows};
+  if (!band_ok(band, n, width)) return (int)cudaErrorInvalidValue;
+  if ((long long)n * rows * width == 0) return 0;
   const bool vec = width % 4 == 0 &&
                    (((uintptr_t)u | (uintptr_t)v | (uintptr_t)out) & 15) == 0;
   const int per = vec ? 4 : 1;
-  const long long plane = (long long)height * width;
+  const long long plane = (long long)rows * width;
+  const long long src_plane = (long long)src_rows * width;
   const dim3 block(kK3Cols, kK3Rows);
   cudaStream_t s = (cudaStream_t)stream;
   for (int z0 = 0; z0 < n; z0 += 65535) {  // gridDim.z <= 65535
     const dim3 grid((width / per + kK3Cols - 1) / kK3Cols,
-                    (height + kK3Rows - 1) / kK3Rows,
+                    (rows + kK3Rows - 1) / kK3Rows,
                     n - z0 < 65535 ? n - z0 : 65535);
     const long long off = z0 * plane;
+    const float* img = image + z0 * src_plane;
     if (vec) {
       warp_bilinear_kernel<4><<<grid, block, 0, s>>>(
-          image + off, u + off, v + off, out + off, height, width);
+          img, u + off, v + off, out + off, band, width);
     } else {
       warp_bilinear_kernel<1><<<grid, block, 0, s>>>(
-          image + off, u + off, v + off, out + off, height, width);
+          img, u + off, v + off, out + off, band, width);
     }
   }
   return (int)cudaGetLastError();
 }
 
-// image, u, v, out: (n, height, width)
+// the arguments of mr_warp_bilinear
 MR_EXPORT int mr_warp_bicubic(const float* image, const float* u,
-                              const float* v, float* out, int n, int height,
-                              int width, void* stream) {
-  return launch_bicubic<false>(image, u, v, out, nullptr, n, height, width,
-                               stream);
+                              const float* v, float* out, int n, int rows,
+                              int width, int row0, int height, int src_row0,
+                              int src_rows, void* stream) {
+  return launch_bicubic<false>(image, u, v, out, nullptr, n,
+                               Band{rows, row0, height, src_row0, src_rows},
+                               width, stream);
 }
 
-// mr_warp_bicubic that also adds to unclamped[0] (a device int) the warps of
-// valid rows whose taps it read unclamped: the path split, for the checks
+// mr_warp_bicubic of the whole frame that also adds to unclamped[0] (a
+// device int) the warps of valid rows whose taps it read unclamped: the
+// path split, for the checks
 MR_EXPORT int mr_warp_bicubic_paths(const float* image, const float* u,
                                     const float* v, float* out,
                                     int* unclamped, int n, int height,
                                     int width, void* stream) {
-  return launch_bicubic<true>(image, u, v, out, unclamped, n, height, width,
+  return launch_bicubic<true>(image, u, v, out, unclamped, n,
+                              Band{height, 0, height, 0, height}, width,
                               stream);
 }
 

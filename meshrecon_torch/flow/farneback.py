@@ -102,11 +102,36 @@ def _box(img, n):
     return _sep_correlate(img, k, k)
 
 
+def flow_step(pa, pb, samp, dx, dy, win):
+    """One iteration of a level: the first frame's coefficients ``pa``
+    (b1, b2, a11, a22, a12), the second's ``pb`` sampled at the displaced
+    positions by ``samp``, the displacement (dx, dy) and the box
+    half-width. Returns the new (dx, dy). Its rows reach ``win`` rows
+    each way, and ``samp``'s reach the displacement's."""
+    b1a, b2a, a11a, a22a, a12a = pa
+    b1b, b2b, a11b, a22b, a12b = pb
+    # average the two quadratics, the second at the displaced position
+    a11 = 0.5 * (a11a + samp(a11b))
+    a22 = 0.5 * (a22a + samp(a22b))
+    a12 = 0.5 * (a12a + samp(a12b))
+    db1 = -0.5 * (samp(b1b) - b1a) + (a11 * dx + a12 * dy)
+    db2 = -0.5 * (samp(b2b) - b2a) + (a12 * dx + a22 * dy)
+
+    # normal equations G d = h smoothed over the window
+    g11 = _box(a11 * a11 + a12 * a12, win)
+    g12 = _box(a11 * a12 + a12 * a22, win)
+    g22 = _box(a12 * a12 + a22 * a22, win)
+    h1 = _box(a11 * db1 + a12 * db2, win)
+    h2 = _box(a12 * db1 + a22 * db2, win)
+    det = g11 * g22 - g12 * g12
+    det = torch.where(det.abs() < 1e-9, 1e-9, det)
+    return (g22 * h1 - g12 * h2) / det, (g11 * h2 - g12 * h1) / det
+
+
 def _flow_level(f1, f2, dx, dy, poly, win, iters):
     u, w, g_inv = poly
-    b1a, b2a, a11a, a22a, a12a = _poly_expansion(f1, u, w, g_inv)
-    b1b, b2b, a11b, a22b, a12b = (
-        t.contiguous() for t in _poly_expansion(f2, u, w, g_inv))
+    pa = _poly_expansion(f1, u, w, g_inv)
+    pb = tuple(t.contiguous() for t in _poly_expansion(f2, u, w, g_inv))
 
     for _ in range(iters):
         dxc, dyc = dx.contiguous(), dy.contiguous()
@@ -115,23 +140,7 @@ def _flow_level(f1, f2, dx, dy, poly, win, iters):
             # a true gather warp (K3): the carried flow is full-magnitude
             return tile_warp_flow_batched(img, dxc, dyc)
 
-        # average the two quadratics, the second at the displaced position
-        a11 = 0.5 * (a11a + samp(a11b))
-        a22 = 0.5 * (a22a + samp(a22b))
-        a12 = 0.5 * (a12a + samp(a12b))
-        db1 = -0.5 * (samp(b1b) - b1a) + (a11 * dx + a12 * dy)
-        db2 = -0.5 * (samp(b2b) - b2a) + (a12 * dx + a22 * dy)
-
-        # normal equations G d = h smoothed over the window
-        g11 = _box(a11 * a11 + a12 * a12, win)
-        g12 = _box(a11 * a12 + a12 * a22, win)
-        g22 = _box(a12 * a12 + a22 * a22, win)
-        h1 = _box(a11 * db1 + a12 * db2, win)
-        h2 = _box(a12 * db1 + a22 * db2, win)
-        det = g11 * g22 - g12 * g12
-        det = torch.where(det.abs() < 1e-9, 1e-9, det)
-        dx = (g22 * h1 - g12 * h2) / det
-        dy = (g11 * h2 - g12 * h1) / det
+        dx, dy = flow_step(pa, pb, samp, dx, dy, win)
     return dx, dy
 
 

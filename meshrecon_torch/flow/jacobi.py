@@ -101,33 +101,50 @@ def hs_level_fused(prev, warped, u0, v0, alpha2: float, iters: int = 60,
         return _hs_sweeps(prev, warped, u0, v0, alpha2, iters)
 
     cheb = solver == "cheb"
-    sizes = chunk_sizes(iters, _sweeps_per_launch)
     shape = warped.shape
-    h, w = shape[-2:]
-    n = warped.numel() // (h * w)
     a = prev.expand(shape).contiguous()
     b, u0, v0 = warped.contiguous(), u0.contiguous(), v0.contiguous()
-    # the state crosses launches in two sets of buffers, one read and one
-    # written: a CTA's halo reads its neighbours' pixels of the launch
-    # before. Chebyshev carries the iterate before (up, vp) too, but out of
-    # the last launch only (u, v).
-    per_set = 4 if cheb and len(sizes) > 1 else 2
-    bufs = [torch.empty_like(b)
-            for _ in range(per_set * min(len(sizes), 2))]
-    check_cuda("hs_level_fused", a, b, u0, v0, *bufs)
-    schedules = _schedules(iters, float(rho), cheb, tuple(sizes))
     u, v = u0, v0
     up, vp = (u0, v0) if cheb else (None, None)
-    for j, (s, coeffs) in enumerate(zip(sizes, schedules)):
-        out = bufs[per_set * (j % 2):per_set * (j % 2 + 1)]
-        last = j == len(sizes) - 1
-        out_up, out_vp = (None, None) if last or not cheb else out[2:4]
-        # the schedule passes as the host array's address (None: Jacobi)
-        K4.launch(a, b, u0, v0, u, v, up, vp, out[0], out[1], out_up,
-                  out_vp, None if coeffs is None else ctypes.addressof(coeffs),
-                  s, float(alpha2), n, h, w)
-        u, v, up, vp = out[0], out[1], out_up, out_vp
+    plan = hs_launches(iters, solver, rho, _sweeps_per_launch)
+    for j, (sweeps, coeffs) in enumerate(plan):
+        u, v, up, vp = hs_launch(a, b, u0, v0, u, v, up, vp, sweeps, coeffs,
+                                 alpha2, carry=cheb and j < len(plan) - 1)
     return u.reshape(shape), v.reshape(shape)
+
+
+def hs_launches(iters: int, solver: str, rho: float = 0.98,
+                per_launch: int = MAX_SWEEPS_PER_LAUNCH) -> list:
+    """The K4 launches of :func:`hs_level_fused`: (sweeps, that launch's
+    (a_k, b_k) pairs as a host array, None for Jacobi) each."""
+    sizes = chunk_sizes(iters, per_launch)
+    return list(zip(sizes, _schedules(iters, float(rho), solver == "cheb",
+                                      tuple(sizes))))
+
+
+def hs_launch(prev, warped, u0, v0, u, v, up, vp, sweeps: int, coeffs,
+              alpha2: float, carry: bool):
+    """One K4 launch of :func:`hs_launches` on CUDA tensors, into new
+    buffers (a CTA's halo reads its neighbours' pixels of the launch
+    before): ``sweeps`` sweeps from the iterate (u, v) and, Chebyshev, the
+    one before, (up, vp) ((u0, v0) at the first launch; None for Jacobi).
+    Returns (u, v, up, vp), the last two None unless ``carry`` (Chebyshev
+    with launches still to come). The tile axis (``sharding/tiles.py``)
+    launches it on each band's window of rows."""
+    shape = warped.shape
+    h, w = shape[-2:]
+    a = prev.expand(shape).contiguous()
+    b, u0, v0, u, v = (t.contiguous() for t in (warped, u0, v0, u, v))
+    outs = [torch.empty_like(b) for _ in range(4 if carry else 2)]
+    check_cuda("hs_launch", a, b, u0, v0, u, v, *outs)
+    if up is not None:
+        up, vp = up.contiguous(), vp.contiguous()
+    outs += [None] * (4 - len(outs))
+    # the schedule passes as the host array's address (None: Jacobi)
+    K4.launch(a, b, u0, v0, u, v, up, vp, *outs,
+              None if coeffs is None else ctypes.addressof(coeffs), sweeps,
+              float(alpha2), b.numel() // (h * w), h, w)
+    return tuple(outs)
 
 
 def hs_jacobi_plain(ix, iy, c, u0, v0, alpha2: float, iters: int = 60):

@@ -21,10 +21,17 @@ budget to clamp.
   no clamp, any other warp clamps each tap (:func:`bicubic_warp_paths`
   mirrors that choice; :func:`warp_bicubic_paths` counts it on the card).
 - :func:`tile_warp_bicubic`: K3b's absolute-coordinate form.
+
 - :func:`tile_warp_sample_batched` (K3c, the valid-mask form): bilinear
   sample of a stack at absolute coordinates, exactly 0.0 where the mask is
   false (the plane sweep's per-plane resample). Plain version:
   :func:`sample_bilinear_masked_plain`.
+
+K2 samples full sources at a band's coordinates (its output plane apart
+from its source plane), and K3 and K3b warp a band of rows of a taller
+image from the source rows around it (``row0``, ``height``,
+``src_row0``): the tile axis (``sharding/tiles.py``) runs them on its
+bands, bit for bit the whole frame's rows.
 """
 
 from __future__ import annotations
@@ -97,10 +104,11 @@ def warp_bicubic_paths(images, u, v):
 
 def tile_warp_sample2_batched(srcs_a, srcs_b, scols, srows,
                               bilinear_a: bool = False):
-    """Sample two (N, H, W) stacks at one coordinate field (N, H, W): A
-    nearest (rounding half up) or, with ``bilinear_a``, bilinear (the TPU
-    kernel's ``nearest_a=False``); B bilinear; all border-clamped.
-    Returns (out_a, out_b), each (N, H, W) float32."""
+    """Sample two (N, H, W) stacks at one coordinate field (N, R, W), R any
+    count of rows (H for the whole frame, a band's): A nearest (rounding
+    half up) or, with ``bilinear_a``, bilinear (the TPU kernel's
+    ``nearest_a=False``); B bilinear; all border-clamped.
+    Returns (out_a, out_b), each (N, R, W) float32."""
     if not srcs_a.is_cuda:
         from meshrecon_torch.raster.fragment import (bilinear_sample,
                                                      nearest_sample)
@@ -108,33 +116,56 @@ def tile_warp_sample2_batched(srcs_a, srcs_b, scols, srows,
         sample_a = bilinear_sample if bilinear_a else nearest_sample
         return (sample_a(srcs_a, scols, srows),
                 bilinear_sample(srcs_b, scols, srows))
-    check_like("tile_warp_sample2_batched", srcs_a, srcs_b, scols, srows)
+    check_like("tile_warp_sample2_batched", srcs_a, srcs_b)
+    check_like("tile_warp_sample2_batched", scols, srows)
     n, h, w = srcs_a.shape
-    out_a = torch.empty_like(srcs_a)
-    out_b = torch.empty_like(srcs_b)
+    if scols.dim() != 3 or scols.shape[0] != n or scols.shape[2] != w \
+            or scols.device != srcs_a.device:
+        raise ValueError(f"tile_warp_sample2_batched: coordinates "
+                         f"{tuple(scols.shape)} on {scols.device} for "
+                         f"sources {tuple(srcs_a.shape)} on {srcs_a.device}")
+    out_a = torch.empty_like(scols)
+    out_b = torch.empty_like(scols)
     K2.launch(srcs_a, srcs_b, scols, srows, out_a, out_b,
-              1 if bilinear_a else 0, n, h, w)
+              1 if bilinear_a else 0, n, h, w, scols.shape[1])
     return out_a, out_b
 
 
-def tile_warp_flow_batched(images, u, v, taps: int = 2):
+def tile_warp_flow_batched(images, u, v, taps: int = 2, *, row0: int = 0,
+                           height=None, src_row0: int = 0):
     """Warp: out[..., r, c] = images(c + u, r + v), border-clamped;
     bilinear (taps=2, K3) or Keys bicubic (taps=4, K3b).
-    images, u, v: (..., H, W) float32 of one shape."""
+    images, u, v: (..., H, W) float32 of one shape.
+
+    A band: u, v hold rows [row0, row0 + hb) of an image of ``height``
+    rows, ``images`` its rows [src_row0, src_row0 + hs), which must hold
+    every tap the samples read; the leading shape and W are shared, and
+    out is (..., hb, W)."""
     if taps not in (2, 4):
         raise ValueError(f"taps must be 2 or 4: {taps}")
+    hb, w = u.shape[-2:]
+    hs = images.shape[-2]
+    height = hs if height is None else height
+    if not (images.shape[:-2] == u.shape[:-2] and images.shape[-1] == w
+            and 0 <= row0 and row0 + hb <= height and 0 <= src_row0
+            and src_row0 + hs <= height):
+        raise ValueError(f"tile_warp_flow_batched: images "
+                         f"{tuple(images.shape)} from row {src_row0}, flow "
+                         f"{tuple(u.shape)} from row {row0}, of {height} "
+                         "rows")
+    band = dict(row0=row0, height=height, src_row0=src_row0)
     if not images.is_cuda:
         from meshrecon_torch.flow.remap import bilinear_warp, flow_remap
 
         flow = torch.stack([u, v], dim=-1)
         if taps == 4:
-            return flow_remap(flow, images)
-        return bilinear_warp(images, flow)
-    check_like("tile_warp_flow_batched", images, u, v)
-    h, w = images.shape[-2:]
-    out = torch.empty_like(images)
-    (K3B if taps == 4 else K3).launch(images, u, v, out,
-                                      images.numel() // (h * w), h, w)
+            return flow_remap(flow, images, **band)
+        return bilinear_warp(images, flow, **band)
+    check_like("tile_warp_flow_batched", u, v)
+    check_cuda("tile_warp_flow_batched", images, u)
+    out = torch.empty_like(u)
+    (K3B if taps == 4 else K3).launch(images, u, v, out, u.numel() // (hb * w),
+                                      hb, w, row0, height, src_row0, hs)
     return out
 
 

@@ -66,13 +66,13 @@ NVCC_FLAGS = (
 # types): argument kinds, P = pointer (or stream), I = int, F = float. The
 # stream is always the last argument.
 _SIGNATURES = {
-    "mr_raster_tiles": "PPPPPPPPPP" + "IIIIIII" + "P",
+    "mr_raster_tiles": "PPPPPPPPPP" + "IIIIIIIII" + "P",
     "mr_raster_tiles2": "PPPPPPPPPPP" + "IIIIIIII" + "P",
     "mr_raster_setup": "PPPPP" + "IIII" + "P",
     "mr_raster_bin": "PPPPPPP" + "IIIII" + "P",
-    "mr_sample_shadow_frame": "PPPPPP" + "IIII" + "P",
-    "mr_warp_bilinear": "PPPP" + "III" + "P",
-    "mr_warp_bicubic": "PPPP" + "III" + "P",
+    "mr_sample_shadow_frame": "PPPPPP" + "IIIII" + "P",
+    "mr_warp_bilinear": "PPPP" + "IIIIIII" + "P",
+    "mr_warp_bicubic": "PPPP" + "IIIIIII" + "P",
     "mr_sample_bilinear_masked": "PPPPP" + "III" + "P",
     # the schedule's (a_k, b_k) pairs are a host pointer (P) before "IF"
     "mr_hs_sweep": "PPPP" + "PPPP" + "PPPP" + "P" + "IF" + "III" + "P",

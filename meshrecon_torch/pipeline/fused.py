@@ -45,6 +45,29 @@ from meshrecon_torch.raster.fragment import (mix_background,
 from meshrecon_torch.raster.rasterizer import pixel_grid
 
 
+def check_options(variance: str, variance_taps: int) -> None:
+    if variance not in ("taylor", "rewarp"):
+        raise ValueError(f"variance must be taylor|rewarp: {variance!r}")
+    if variance_taps not in (2, 4):
+        raise ValueError(f"variance_taps must be 2|4: {variance_taps}")
+
+
+def mix_chain(intens, masks, frames_main, depth0, side_valid):
+    """The sequential background-mix chain over the K sides: each side's
+    mix sees the previous side's masked depth, and padded sides leave the
+    depth untouched. intens, masks (B, K, H, W); frames_main, depth0
+    (B, H, W); side_valid (B, K). Returns (mixed (B, K, H, W), the final
+    depth (B, H, W)). Pointwise: a band of rows mixes alone."""
+    depth = depth0
+    mixed_list = []
+    for i in range(intens.shape[1]):
+        mixed, new_depth = mix_background(intens[:, i], masks[:, i],
+                                          frames_main, depth)
+        depth = torch.where(side_valid[:, i, None, None], new_depth, depth)
+        mixed_list.append(mixed)
+    return torch.stack(mixed_list, dim=1), depth
+
+
 def fused_main_update_batched(soup, soup_valid, cam_mains, frames_main,
                               side_cams, side_frames, side_valid, centers,
                               centers_valid, n_side, height: int, width: int,
@@ -72,10 +95,7 @@ def fused_main_update_batched(soup, soup_valid, cam_mains, frames_main,
     Returns dict(point4, normals, pdf, valid, depth) with leading B, and
     ``gn_sweeps`` (the Gauss-Newton sweep count, one host sync each).
     """
-    if variance not in ("taylor", "rewarp"):
-        raise ValueError(f"variance must be taylor|rewarp: {variance!r}")
-    if variance_taps not in (2, 4):
-        raise ValueError(f"variance_taps must be 2|4: {variance_taps}")
+    check_options(variance, variance_taps)
     frames_main = frames_main.to(torch.float32)
     side_cams = side_cams.to(torch.float32)
     side_frames = side_frames.to(torch.float32)
@@ -95,16 +115,8 @@ def fused_main_update_batched(soup, soup_valid, cam_mains, frames_main,
     intens, masks = projected_image_batched(cam_mains, depth0, side_frames,
                                             side_cams, all_depths[:, 1:],
                                             shadow_sample=shadow_sample)
-    depth = depth0
-    mixed_list = []
-    for i in range(k):
-        mixed, new_depth = mix_background(intens[:, i], masks[:, i],
-                                          frames_main, depth)
-        # padded sides leave the depth untouched
-        depth = torch.where(side_valid[:, i, None, None], new_depth, depth)
-        mixed_list.append(mixed)
-    depth_final = depth
-    mixed_all = torch.stack(mixed_list, dim=1)  # (B, K, H, W)
+    mixed_all, depth_final = mix_chain(intens, masks, frames_main, depth0,
+                                       side_valid)
 
     # 3: one batched flow solve over every (main, side) pair
     rewarped = None

@@ -26,7 +26,10 @@ ballots, so a render is three launches. Their plain versions, :func:`pack_record
 tensors, and the kernels equal them bit for bit.
 
 Both raster kernels run one CTA per 16x16 tile and all cameras in one
-launch. Unlike the TPU kernels, the records carry the bbox of the pixels a
+launch. K1 also renders a window of rows (``rows=(r0, r1)``, a band of a
+tile group, ``sharding/tiles.py``): the binning still lists every tile,
+and only the tiles that meet the window launch, at their global places, so
+the window's rows equal the whole render's bit for bit. Unlike the TPU kernels, the records carry the bbox of the pixels a
 triangle can cover (:func:`~meshrecon_torch.raster.rasterizer.coverage_bbox`),
 not of its vertices, so binning never drops a pixel inside the edge-tie
 fringe and the kernels equal the plain ``render_depth`` bit for bit. There
@@ -304,16 +307,30 @@ def bin_soup(cameras, soup, soup_valid, height: int, width: int,
                 height=height, width=width, chunk=chunk, supers=supers)
 
 
-def raster_binned(kernel: Kernel, bins: dict) -> torch.Tensor:
+def _window(rows, height: int) -> tuple:
+    """(r0, r1): the rows ``rows`` names, all of them for None; an empty or
+    out-of-range window raises."""
+    r0, r1 = (0, height) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= r0 < r1 <= height:
+        raise ValueError(f"rows [{r0}, {r1}) is not a window of {height} "
+                         "rows")
+    return r0, r1
+
+
+def raster_binned(kernel: Kernel, bins: dict, rows=None) -> torch.Tensor:
     """Launch K1 (``bins`` of one level) or K5 (two levels, through
     ``kernel``, K5A or K5B) on the output of :func:`bin_soup`: (N, H, W)
-    float32 depth, background 1.0."""
+    float32 depth, background 1.0. ``rows`` (K1 only): (r0, r1), the rows
+    to render, into an (N, r1 - r0, W) buffer."""
     packed, lists, counts = bins["packed"], bins["lists"], bins["counts"]
     height, width, chunk = bins["height"], bins["width"], bins["chunk"]
     px, py = bins["grid"]
     tx0, tx1, ty0, ty1 = bins["tiles"]
     n = packed.shape[0]
-    out = torch.empty((n, height, width), dtype=torch.float32,
+    r0, r1 = _window(rows, height)
+    if rows is not None and kernel is not K1:
+        raise ValueError(f"{kernel.name}: a row window is K1's only")
+    out = torch.empty((n, r1 - r0, width), dtype=torch.float32,
                       device=packed.device)
     name = kernel.name
     check_cuda(name, packed, px, py, tx0, tx1, ty0, ty1, out)
@@ -323,7 +340,7 @@ def raster_binned(kernel: Kernel, bins: dict) -> torch.Tensor:
             raise ValueError(f"{name}: one-level bins launch K1 only")
         kernel.launch(packed, lists, counts, px, py, tx0, tx1, ty0, ty1, out,
                       n, packed.shape[-1], lists.shape[-1], height, width,
-                      TILE, chunk)
+                      TILE, chunk, r0, r1)
     else:
         if kernel is K1:
             raise ValueError(f"{name}: two-level bins launch K5 only")
@@ -336,9 +353,10 @@ def raster_binned(kernel: Kernel, bins: dict) -> torch.Tensor:
 
 def render_depth_binned(cameras, soup, soup_valid, height: int, width: int,
                         chunk: int = CHUNK, two_level: bool = False,
-                        supers: int = SUPERS):
+                        supers: int = SUPERS, rows=None):
     """N depth renders of one soup: cameras (N, 4, 4) -> (N, H, W) float32,
-    background 1.0; same per-pixel contract as ``render_depth``.
+    background 1.0; same per-pixel contract as ``render_depth``. ``rows``
+    (one level only): (r0, r1), the rows to render, (N, r1 - r0, W) out.
 
     CPU tensors take the plain ``render_depth``; CUDA tensors launch K1
     (two_level=False) or K5 through K5A (two_level=True) once for all N
@@ -346,11 +364,14 @@ def render_depth_binned(cameras, soup, soup_valid, height: int, width: int,
     soup is still right, only slower.
     """
     _check_args(chunk, supers)
+    if rows is not None and two_level:
+        raise ValueError("render_depth_binned: a row window is K1's only")
     if _on_cpu("render_depth_binned", cameras, soup, soup_valid):
-        return render_depth(cameras, soup, soup_valid, height, width)
+        return render_depth(cameras, soup, soup_valid, height, width,
+                            rows=rows)
     bins = bin_soup(cameras, soup, soup_valid, height, width, chunk,
                     two_level, supers)
-    return raster_binned(K5A if two_level else K1, bins)
+    return raster_binned(K5A if two_level else K1, bins, rows)
 
 
 def render_depth_binned_batched(cameras, soup, soup_valid, height: int,

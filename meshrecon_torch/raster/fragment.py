@@ -53,18 +53,24 @@ def _index(v):
     return torch.nan_to_num(v, nan=0.0).to(torch.int64)
 
 
-def bilinear_sample(image, col, row):
+def bilinear_sample(image, col, row, *, height=None, src_row0: int = 0):
     """Bilinear sample of image (..., H, W) at continuous (col, row) of the
-    same leading shape; clamped borders."""
+    same leading shape; clamped borders. ``image`` may hold rows
+    [src_row0, src_row0 + h) of an image of ``height`` rows: ``row`` is a
+    row of that image, the clamps act at its edges, and every tap read
+    must lie in the rows held."""
     h, w = image.shape[-2:]
+    height = h if height is None else height
     col = col.clamp(0.0, w - 1.0)
-    row = row.clamp(0.0, h - 1.0)
+    row = row.clamp(0.0, height - 1.0)
     c0 = _index(torch.floor(col))
     r0 = _index(torch.floor(row))
     c1 = (c0 + 1).clamp(max=w - 1)
-    r1 = (r0 + 1).clamp(max=h - 1)
+    r1 = (r0 + 1).clamp(max=height - 1)
     fc = col - c0
     fr = row - r0
+    if src_row0:
+        r0, r1 = r0 - src_row0, r1 - src_row0
     v00 = _gather(image, r0, c0)
     v01 = _gather(image, r0, c1)
     v10 = _gather(image, r1, c0)
@@ -83,25 +89,33 @@ def nearest_sample(image, col, row):
 
 
 def projected_image_batched(cam_mains, depth_mains, frames, projectors,
-                            depth_sides, shadow_sample: str = "nearest"):
+                            depth_sides, shadow_sample: str = "nearest", *,
+                            row0: int = 0, shadow=None):
     """B main cameras x K sides of projective texturing in one pass.
 
     cam_mains: (B, 4, 4); depth_mains: (B, H, W); frames: (B, K, H, W);
     projectors: (B, K, 4, 4); depth_sides: (B, K, H, W); shadow_sample:
     "nearest" or "bilinear", the shadow map's sampler.
     Returns (intensity (B, K, H, W) float32, mask (B, K, H, W) bool).
+
+    A band of the main view (``sharding/tiles.py``): depth_mains holds its
+    rows [row0, row0 + hb), (B, hb, W), and the outputs are (B, K, hb, W);
+    the side frames and ``shadow``, the side depths already dilated
+    (:func:`dilate3x3_max`, then ``depth_sides`` is not read), are whole.
     """
     if shadow_sample not in ("nearest", "bilinear"):
         raise ValueError(f"shadow_sample must be nearest|bilinear: "
                          f"{shadow_sample!r}")
     b, k, h, w = frames.shape
+    hb = depth_mains.shape[-2]
     depth_mains = depth_mains.to(torch.float32)
     frames = frames.to(torch.float32)
-    shadow = dilate3x3_max(depth_sides.to(torch.float32))
+    if shadow is None:
+        shadow = dilate3x3_max(depth_sides.to(torch.float32))
 
     cols, rows = pixel_grid(h, w, frames.device)
     x = cols[None, :]
-    y = rows[:, None]
+    y = rows[row0:row0 + hb, None]
     z = depth_mains[:, None]  # (B, 1, H, W)
     valid = z != BACKGROUND_DEPTH
 
@@ -126,10 +140,10 @@ def projected_image_batched(cam_mains, depth_mains, frames, projectors,
     bk = b * k
     shadow_z, intensity = tile_warp_sample2_batched(
         shadow.reshape(bk, h, w), frames.reshape(bk, h, w),
-        scol.reshape(bk, h, w), srow.reshape(bk, h, w),
+        scol.reshape(bk, hb, w), srow.reshape(bk, hb, w),
         bilinear_a=shadow_sample == "bilinear")
-    shadow_z = shadow_z.reshape(b, k, h, w)
-    intensity = intensity.reshape(b, k, h, w)
+    shadow_z = shadow_z.reshape(b, k, hb, w)
+    intensity = intensity.reshape(b, k, hb, w)
     visible = shadow_z + 0.01 > sz
     mask = valid & visible & inframe
     return torch.where(mask, intensity, 0.0), mask

@@ -264,11 +264,14 @@ def _pixel_window(xmin, xmax, ymin, ymax, height, width):
     return r0, r1, c0, c1
 
 
-def render_depth(camera, soup, soup_valid, height: int, width: int):
+def render_depth(camera, soup, soup_valid, height: int, width: int,
+                 rows=None):
     """Full-frame z-buffer depth render; the plain version of K1.
 
     camera: (4, 4) or (N, 4, 4); soup: (T, 3, 3); soup_valid: (T,) bool.
-    Returns (H, W) or (N, H, W) float32 NDC depth, background = 1.0.
+    Returns (H, W) or (N, H, W) float32 NDC depth, background = 1.0;
+    ``rows`` (r0, r1) renders those rows of the frame alone, (r1 - r0, W)
+    a camera, each pixel as in the whole render.
 
     Brute force in the arithmetic (every record's edge functions at every
     pixel it can cover, z-min), restricted per 64-record chunk to the
@@ -278,8 +281,9 @@ def render_depth(camera, soup, soup_valid, height: int, width: int):
     fetches the windows.
     """
     if camera.dim() == 3:
-        return torch.stack([render_depth(c, soup, soup_valid, height, width)
-                            for c in camera])
+        return torch.stack([render_depth(c, soup, soup_valid, height, width,
+                                         rows) for c in camera])
+    row_lo, row_hi = (0, height) if rows is None else rows
     planes = clip_project_planes(camera, soup, soup_valid)
     coeffs = edge_affine_planes(*planes)
     z0, z1, z2, ok = planes[6], planes[7], planes[8], planes[10]
@@ -297,7 +301,7 @@ def render_depth(camera, soup, soup_valid, height: int, width: int):
     chunk_boxes = torch.stack([lo[0], hi[0], lo[1], hi[1]], 1).cpu().tolist()
 
     px, py = pixel_grid(height, width, camera.device)
-    zbuf = torch.full((height, width), float("inf"), dtype=torch.float32,
+    zbuf = torch.full((row_hi - row_lo, width), float("inf"), dtype=torch.float32,
                       device=camera.device)
     fields = coeffs + (z0, z1, z2)
     for ci, box in enumerate(chunk_boxes):
@@ -305,6 +309,9 @@ def render_depth(camera, soup, soup_valid, height: int, width: int):
         if win is None:
             continue
         r0, r1, c0, c1 = win
+        r0, r1 = max(r0, row_lo), min(r1, row_hi - 1)
+        if r0 > r1:
+            continue
         sl = slice(ci * _CHUNK, min((ci + 1) * _CHUNK, n))
         a0, b0, c0_, a1, b1, c1_, a2, b2, c2, zz0, zz1, zz2 = (
             f[sl][:, None, None] for f in fields)
@@ -317,8 +324,8 @@ def render_depth(camera, soup, soup_valid, height: int, width: int):
         covered = ((l0 >= 0) & (l1 >= 0) & (l2 >= 0)
                    & (zs >= -1.0) & (zs <= 1.0))
         zc = torch.where(covered, zs, float("inf")).amin(0)
-        zbuf[r0:r1 + 1, c0:c1 + 1] = torch.minimum(
-            zbuf[r0:r1 + 1, c0:c1 + 1], zc)
+        zbuf[r0 - row_lo:r1 + 1 - row_lo, c0:c1 + 1] = torch.minimum(
+            zbuf[r0 - row_lo:r1 + 1 - row_lo, c0:c1 + 1], zc)
     return torch.where(torch.isfinite(zbuf), zbuf, 1.0)
 
 

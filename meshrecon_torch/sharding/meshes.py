@@ -24,8 +24,14 @@ The axes:
 - ``window``: the plane sweep's side frames; the shards' photometric
   evidence (JAX's ``psum``) is summed per depth plane on the first device
   in shard order, so the cost's last bits do not change from run to run.
-- ``tile``: image rows. Only size 1 is ported: the sharded functions raise
-  NotImplementedError for a tile axis above 1 (ROADMAP Queue A, A12b).
+- ``tile``: image rows. Each camera shard owns a tile group, the devices
+  of its row of the mesh, and the dense updates split every dense plane's
+  rows over it: one controller per group walks the update's stages and
+  exchanges the rows each stage reaches between them
+  (``sharding/tiles.py``), bit for bit the unsharded update. The scene
+  axis runs each scene shard on the first device of its group (JAX's
+  ``shard_map`` replicates a scene over its group), the window axis has no
+  tile axis.
 
 Devices: ``devices=None`` means ``cuda:0 .. n-1``, and too few raise
 ``ValueError("need n devices, have m")`` as the JAX mesh functions do. An
@@ -116,14 +122,9 @@ def make_window_mesh(n_window: int, devices=None) -> Mesh:
 
 
 def _axis_devices(mesh: Mesh, axis: str) -> list:
-    """The devices along ``axis`` (the first of every other axis); a tile
-    axis above 1 raises."""
+    """The devices along ``axis`` (the first of every other axis)."""
     if axis not in mesh.axis_names:
         raise ValueError(f"mesh needs a '{axis}' axis: {mesh.axis_names}")
-    if mesh.shape.get("tile", 1) > 1:
-        raise NotImplementedError(
-            "a tile axis above 1 (image rows split over devices) is not "
-            "ported: ROADMAP Queue A, A12b")
     index = tuple(slice(None) if name == axis else 0
                   for name in mesh.axis_names)
     return list(mesh.devices[index])
@@ -176,7 +177,7 @@ def _split(x, n: int, devices: list) -> list:
 
 
 def _shards(devices: list, split_args, replicated=()) -> tuple:
-    """(devices, per-shard argument tuples) of the shards that got items:
+    """(indices, per-shard argument tuples) of the shards that got items:
     ``split_args`` split along their leading axis, ``replicated`` copied
     to each device (after the split arguments)."""
     n = len(devices)
@@ -184,10 +185,36 @@ def _shards(devices: list, split_args, replicated=()) -> tuple:
     keep = [i for i in range(n) if len(parts[0][i])]
     if not keep:
         raise ValueError("nothing to shard: the leading axis is empty")
-    devs = [devices[i] for i in keep]
     args = [tuple(_tensor(r).to(devices[i]) for r in replicated)
             + tuple(p[i] for p in parts) for i in keep]
-    return devs, args
+    return keep, args
+
+
+def _camera_step(mesh: Mesh, body, tiled, keys, replicated: int = 0):
+    """The callable of a camera-sharded update: its inputs' batch split over
+    the camera axis (the first ``replicated`` inputs copied to each shard),
+    each shard run by ``body(*args)`` on its device, or, with a tile axis
+    above 1, by ``tiled(group, *args)`` with ``group`` the devices of its
+    row of the mesh; the outputs ``keys`` gathered onto the mesh's first
+    device, in camera order."""
+    devices = _axis_devices(mesh, "camera")
+    index = tuple(slice(None) if name in ("camera", "tile") else 0
+                  for name in mesh.axis_names)
+    groups = [list(row) for row in
+              mesh.devices[index].reshape(len(devices), -1)]
+
+    def step(*args):
+        keep, shards = _shards(devices, args[replicated:],
+                               replicated=args[:replicated])
+        devs = [devices[i] for i in keep]
+        if len(groups[0]) == 1:
+            outs = parallel_shards(body, devs, shards)
+        else:
+            outs = parallel_shards(tiled, devs, [(groups[i],) + a for i, a in
+                                                 zip(keep, shards)])
+        return _gather(outs, keys, devices[0])
+
+    return step
 
 
 def _gather(outs: list, keys, device) -> dict:
@@ -233,22 +260,31 @@ def dense_update_batch(frames_main, frames_proj, main_cams, side_cams,
     return out["point4"], normals, out["pdf"], out["valid"]
 
 
+_DENSE_KEYS = ("point4", "normals", "pdf", "valid")
+
+
 def sharded_dense_update(mesh: Mesh, flow_quality: str = "fast"):
-    """:func:`dense_update_batch` over the mesh's camera axis: a callable
-    of its nine inputs (tensors or arrays, batch leading) that returns its
-    four outputs on the mesh's first device."""
-    devices = _axis_devices(mesh, "camera")
+    """:func:`dense_update_batch` over the mesh's camera axis, and with a
+    tile axis above 1 each camera shard's image rows over its row of the
+    mesh (``sharding/tiles.py``): a callable of its nine inputs (tensors or
+    arrays, batch leading) that returns its four outputs on the mesh's
+    first device."""
+    from meshrecon_torch.sharding import tiles
 
     def body(*args):
-        return dict(zip(("point4", "normals", "pdf", "valid"),
+        return dict(zip(_DENSE_KEYS,
                         dense_update_batch(*args, flow_quality=flow_quality)))
 
+    def tiled(group, frames_main, *args):
+        g = tiles.TileGroup(group, frames_main.shape[-2])
+        return dict(zip(_DENSE_KEYS, tiles.dense_update(
+            g, frames_main, *args, flow_quality=flow_quality)))
+
+    inner = _camera_step(mesh, body, tiled, _DENSE_KEYS)
+
     def step(*args):
-        devs, shards = _shards(devices, args)
-        outs = parallel_shards(body, devs, shards)
-        out = _gather(outs, ("point4", "normals", "pdf", "valid"),
-                      devices[0])
-        return out["point4"], out["normals"], out["pdf"], out["valid"]
+        out = inner(*args)
+        return tuple(out[k] for k in _DENSE_KEYS)
 
     return step
 
@@ -264,12 +300,21 @@ def sharded_fused_update(mesh: Mesh, height: int, width: int,
     ...): the pipeline passes its configuration's, where JAX's form takes
     ``use_farneback`` alone (ROADMAP Queue C, divergences by design).
 
+    With a tile axis above 1, each camera shard's image rows split over
+    its row of the mesh (``sharding/tiles.py``), bit for bit the unsharded
+    update; ``flow_solver="mg"`` then raises ValueError. Every call's
+    :class:`~meshrecon_torch.sharding.tiles.TileGroup` s are appended to
+    the callable's ``tile_groups`` list (their exchanged bytes and
+    windows).
+
     Returns a callable of the ten update inputs (tensors or arrays) that
     returns dict(point4, normals, pdf, valid, depth) on the mesh's first
     device."""
     from meshrecon_torch.pipeline.fused import fused_main_update_batched
+    from meshrecon_torch.sharding import tiles
 
-    devices = _axis_devices(mesh, "camera")
+    if mesh.shape.get("tile", 1) > 1 and not use_farneback:
+        tiles.check_solver(options.get("flow_solver", "cheb"))
 
     def body(soup, soup_valid, *batch):
         out = fused_main_update_batched(soup, soup_valid, *batch, height,
@@ -277,11 +322,17 @@ def sharded_fused_update(mesh: Mesh, height: int, width: int,
                                         **options)
         return {k: out[k] for k in _OUT_KEYS}
 
-    def step(soup, soup_valid, *batch):
-        devs, shards = _shards(devices, batch, replicated=(soup, soup_valid))
-        return _gather(parallel_shards(body, devs, shards), _OUT_KEYS,
-                       devices[0])
+    groups = []
 
+    def tiled(devices, *args):
+        group = tiles.TileGroup(devices, height)
+        groups.append(group)
+        out = tiles.fused_update(group, *args, height, width,
+                                 use_farneback=use_farneback, **options)
+        return {k: out[k] for k in _OUT_KEYS}
+
+    step = _camera_step(mesh, body, tiled, _OUT_KEYS, replicated=2)
+    step.tile_groups = groups
     return step
 
 
@@ -344,8 +395,8 @@ def sharded_multi_scene_fused(mesh: Mesh, height: int, width: int,
         return {k: torch.stack([o[k] for o in outs]) for k in _OUT_KEYS}
 
     def step(*args):
-        devs, shards = _shards(devices, args)
-        return _gather(parallel_shards(body, devs, shards), _OUT_KEYS,
-                       devices[0])
+        keep, shards = _shards(devices, args)
+        return _gather(parallel_shards(body, [devices[i] for i in keep],
+                                       shards), _OUT_KEYS, devices[0])
 
     return step

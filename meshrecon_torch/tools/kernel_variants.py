@@ -162,7 +162,8 @@ def k3b_rows(var, kept, gen, device, rounds) -> dict:
         ptrs = (img.data_ptr(), u.data_ptr(), v.data_ptr())
         ref = torch.empty_like(img)
         timers = {"kept (csrc/warp.cu)": _graph_us(_checked(
-            kept.mr_warp_bicubic, *ptrs, ref.data_ptr(), n, H, W))}
+            kept.mr_warp_bicubic, *ptrs, ref.data_ptr(), n, H, W, 0, H, 0,
+            H))}
         outs = []  # a graph's output lives as long as its replays
         for k, name in K3B.items():
             o = torch.empty_like(img)
@@ -397,7 +398,7 @@ def main(argv=None) -> dict:
     var = build()
     kept = library().cdll
     kept.mr_warp_bicubic.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
     kept.mr_roofline_fma.argtypes = [ctypes.c_void_p] * 2 + [
         ctypes.c_int] * 2 + [ctypes.c_void_p]
     kept.mr_raster_setup.argtypes = [ctypes.c_void_p] * 5 + [

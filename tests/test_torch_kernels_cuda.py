@@ -25,7 +25,12 @@ and R4 bitwise (one float32 operation each); R2 1e-6 relative (its plain
 version's float64 sum can round before the float32 rounding). The sweep
 update, the flow update's variants and the reconstruction on the card
 against their plain runs on the CPU; the roofline and breakdown tools on
-the card.
+the card. The tile axis's bands: K1's row window and K2's band output
+bitwise against the whole frame's rows and against their plain versions
+(K2's bilinear 1e-4), K3's and K3b's bands bitwise against the whole
+frame's rows (K3 also against ``bilinear_warp``'s band), and the tile-
+sharded update on one card's ``[cuda:0] * n`` bitwise against the
+unsharded update.
 """
 
 import ctypes
@@ -89,6 +94,101 @@ def test_raster_tiles_near_straddle_bitwise(dev):
     out = binned.render_depth_binned(cam[None], soup, valid, 96, 128)[0]
     ref = rasterizer.render_depth(cam, soup, valid, 96, 128)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("rows", [(0, 480), (5, 37), (100, 101), (250, 480),
+                                  (479, 480), (16, 32)])
+def test_raster_tiles_row_window(dev, rows):
+    """K1's row window: rows not aligned to the 16-row tile, one row, the
+    whole frame; bitwise against the whole render's rows and the plain
+    render's window."""
+    soup, valid = (torch.from_numpy(a).to(dev) for a in
+                   state.pack_soup(problems.sphere_soup(64, 128)))
+    cams = _cams(2, 2, dev)
+    whole = binned.render_depth_binned(cams, soup, valid, 480, 640)
+    before = binned.K1.launches
+    win = binned.render_depth_binned(cams, soup, valid, 480, 640, rows=rows)
+    assert binned.K1.launches == before + 1
+    assert win.shape == (len(cams), rows[1] - rows[0], 640)
+    assert torch.equal(win, whole[:, rows[0]:rows[1]])
+    assert torch.equal(win, rasterizer.render_depth(cams, soup, valid, 480,
+                                                    640, rows=rows))
+    with pytest.raises(ValueError, match="not a window"):
+        binned.render_depth_binned(cams, soup, valid, 480, 640, rows=(5, 5))
+
+
+@pytest.mark.parametrize("bilinear_a", [False, True])
+@pytest.mark.parametrize("rows", [(0, 96), (7, 41), (95, 96)])
+def test_sample_shadow_frame_band(dev, rows, bilinear_a):
+    """K2's output plane apart from its source plane: a band's coordinates
+    against whole sources, bitwise the whole frame's rows; against the
+    plain samplers (nearest bitwise, bilinear 1e-4)."""
+    n, h, w = 6, 96, 128
+    g = torch.Generator().manual_seed(8)
+    a = torch.rand((n, h, w), generator=g).to(dev)
+    b = (255 * torch.rand((n, h, w), generator=g)).to(dev)
+    col = ((w + 10) * torch.rand((n, h, w), generator=g) - 5).to(dev)
+    row = ((h + 10) * torch.rand((n, h, w), generator=g) - 5).to(dev)
+    r0, r1 = rows
+    whole = tile_warp.tile_warp_sample2_batched(a, b, col, row, bilinear_a)
+    bc, br = col[:, r0:r1].contiguous(), row[:, r0:r1].contiguous()
+    oa, ob = tile_warp.tile_warp_sample2_batched(a, b, bc, br, bilinear_a)
+    assert oa.shape == (n, r1 - r0, w)
+    assert torch.equal(oa, whole[0][:, r0:r1])
+    assert torch.equal(ob, whole[1][:, r0:r1])
+    plain_a = (bilinear_sample if bilinear_a else nearest_sample)(a, bc, br)
+    assert (oa - plain_a).abs().max().item() <= (1e-4 if bilinear_a else 0)
+    assert (ob - bilinear_sample(b, bc, br)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("taps", [2, 4])
+@pytest.mark.parametrize("lo,hi,shift", [(0, 120, 0.0), (120, 240, 19.3),
+                                         (40, 41, -9.7), (200, 240, 30.2)])
+def test_warp_band(dev, taps, lo, hi, shift):
+    """K3 and K3b on a band of rows from the source rows its samples reach
+    (fractional flows reaching past the next band): bitwise the whole
+    frame's rows; K3 also bitwise against ``bilinear_warp``'s band."""
+    n, h, w = 4, 240, 320
+    g = torch.Generator().manual_seed(4)
+    img = (255 * torch.rand((n, h, w), generator=g)).to(dev)
+    u = (3 * torch.randn((n, h, w), generator=g)).to(dev)
+    v = (torch.rand((n, h, w), generator=g) * 2 - 1).to(dev) + shift
+    reach = math.ceil(v.abs().max().item()) + taps // 2
+    w0, w1 = max(lo - reach, 0), min(hi + reach, h)
+    band = dict(row0=lo, height=h, src_row0=w0)
+    args = (img[:, w0:w1].contiguous(), u[:, lo:hi].contiguous(),
+            v[:, lo:hi].contiguous())
+    kernel = tile_warp.K3B if taps == 4 else tile_warp.K3
+    before = kernel.launches
+    out = tile_warp.tile_warp_flow_batched(*args, taps, **band)
+    assert kernel.launches == before + 1
+    whole = tile_warp.tile_warp_flow_batched(img, u, v, taps)
+    assert torch.equal(out, whole[:, lo:hi])
+    if taps == 2:
+        assert torch.equal(out, bilinear_warp(
+            args[0], torch.stack(args[1:], -1), **band))
+    else:
+        ref = flow_remap(torch.stack(args[1:], -1), args[0], **band)
+        assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("n_tile", [2, 4])
+def test_tiled_fused_update_on_the_card(dev, n_tile):
+    """The tile-sharded update on ``[cuda:0] * 2 n_tile`` (2 camera shards)
+    bitwise against the unsharded update on the card: K4 in one launch a
+    level, in three (60 Jacobi sweeps) and in two carrying the Chebyshev
+    state (30 sweeps) between each band's windows."""
+    from meshrecon_torch.sharding import make_device_mesh, sharded_fused_update
+
+    h, w = 96, 128
+    args = state.from_numpy(problems.fused_problem(4, 2, h, w), dev)
+    for opts in ({}, dict(variance="rewarp", sampling="exact"),
+                 dict(flow_solver="jacobi"), dict(iters=30)):
+        ref = fused_main_update_batched(*args, h, w, **opts)
+        out = sharded_fused_update(make_device_mesh(
+            2, n_tile, devices=[dev] * (2 * n_tile)), h, w, **opts)(*args)
+        for key in ("point4", "normals", "pdf", "valid", "depth"):
+            assert torch.equal(out[key], ref[key]), key
 
 
 def _counts():

@@ -157,14 +157,6 @@ def test_default_devices_are_gpus(monkeypatch):
         make_device_mesh(1)
 
 
-@pytest.mark.parametrize("make", [
-    lambda mesh: sharded_fused_update(mesh, 32, 32),
-    lambda mesh: sharded_dense_update(mesh)], ids=["fused", "dense"])
-def test_tile_axis_raises(make):
-    with pytest.raises(NotImplementedError, match="A12b"):
-        make(make_device_mesh(2, 4, devices=cpus(8)))
-
-
 def test_sharded_fused_update():
     h = w = 32
     args = g._fused_problem(b=4, k=2, h=h, w=w)
