@@ -21,7 +21,9 @@ import torch
 
 from meshrecon_torch import BACKGROUND_DEPTH
 from meshrecon_torch.flow.tile_warp import tile_warp_sample_batched
+from meshrecon_torch.geometry.camera import invert_cameras
 from meshrecon_torch.raster.rasterizer import pixel_grid
+from meshrecon_torch.utils.profiling import span, to_device
 
 
 def _box3(img):
@@ -41,12 +43,10 @@ def _box3(img):
 def sweep_planes(z_min, z_max, num_depths: int, device):
     """(z_min (B,), z_max (B,), zs (D, B)): the sweep ranges and the NDC
     depths of the ``num_depths`` planes, float32 on ``device``."""
-    z_min = torch.as_tensor(z_min, dtype=torch.float32,
-                            device=device).reshape(-1)
-    z_max = torch.as_tensor(z_max, dtype=torch.float32,
-                            device=device).reshape(-1)
-    ts = torch.from_numpy(
-        np.linspace(0.0, 1.0, num_depths).astype(np.float32)).to(device)
+    z_min = to_device(z_min, device, torch.float32).reshape(-1)
+    z_max = to_device(z_max, device, torch.float32).reshape(-1)
+    ts = to_device(np.linspace(0.0, 1.0, num_depths).astype(np.float32),
+                   device)
     zs = z_min[None, :] + ts[:, None] * (z_max - z_min)[None, :]
     return z_min, z_max, zs
 
@@ -66,7 +66,7 @@ class SweepWindow:
         self.fs = frames_side.to(torch.float32).contiguous()
         h, w = self.fm.shape[1:]
         dev = self.fm.device
-        main_inv = torch.linalg.inv(cam_mains.to(torch.float32))
+        main_inv = invert_cameras(cam_mains.to(torch.float32))
         # (B, K, 4, 4)
         self.cm = cams_side.to(torch.float32) @ main_inv[:, None]
         self.vmask = side_valid.to(torch.float32)
@@ -126,38 +126,43 @@ def sweep_windows(windows, z_min, z_max, num_depths: int):
         cost = num / den.clamp(min=1e-6)
         return _box3(cost), den
 
-    big = torch.full((b, h, w), 1e30, dtype=torch.float32, device=dev)
-    best_c, best_prev, best_next, last_c = big, big, big, big
-    best_z = z_max[:, None, None].expand(b, h, w)
-    pending = torch.zeros((b, h, w), dtype=torch.bool, device=dev)
-    support = torch.zeros((b, h, w), dtype=torch.float32, device=dev)
-    for d in range(num_depths):
-        z = zs[d]
-        c, sup = cost_at(d)
-        is_best = c < best_c
-        best_prev = torch.where(is_best, last_c, best_prev)
-        best_next = torch.where(pending & ~is_best, c, best_next)
-        pending = is_best
-        best_z = torch.where(is_best, z[:, None, None], best_z)
-        best_c = torch.where(is_best, c, best_c)
-        support = torch.maximum(support, sup)
-        last_c = c
+    with span("sweep", dev):
+        big = torch.full((b, h, w), 1e30, dtype=torch.float32, device=dev)
+        best_c, best_prev, best_next, last_c = big, big, big, big
+        best_z = z_max[:, None, None].expand(b, h, w)
+        pending = torch.zeros((b, h, w), dtype=torch.bool, device=dev)
+        support = torch.zeros((b, h, w), dtype=torch.float32, device=dev)
+        for d in range(num_depths):
+            with span("plane", dev):
+                z = zs[d]
+                c, sup = cost_at(d)
+                is_best = c < best_c
+                best_prev = torch.where(is_best, last_c, best_prev)
+                best_next = torch.where(pending & ~is_best, c, best_next)
+                pending = is_best
+                best_z = torch.where(is_best, z[:, None, None], best_z)
+                best_c = torch.where(is_best, c, best_c)
+                support = torch.maximum(support, sup)
+                last_c = c
 
-    dz = ((z_max - z_min) / (num_depths - 1))[:, None, None]
-    denom = best_prev - 2.0 * best_c + best_next
-    ok_ref = (denom.abs() > 1e-12) & (best_prev < 1e29) & (best_next < 1e29)
-    offset = torch.where(ok_ref, 0.5 * (best_prev - best_next) / denom, 0.0)
-    offset = offset.clamp(-1.0, 1.0)
-    depth = best_z + offset * dz
+        dz = ((z_max - z_min) / (num_depths - 1))[:, None, None]
+        denom = best_prev - 2.0 * best_c + best_next
+        ok_ref = ((denom.abs() > 1e-12) & (best_prev < 1e29)
+                  & (best_next < 1e29))
+        offset = torch.where(ok_ref, 0.5 * (best_prev - best_next) / denom,
+                             0.0)
+        offset = offset.clamp(-1.0, 1.0)
+        depth = best_z + offset * dz
 
-    # two side views where the window has two; a single-side bundle is
-    # classic two-view stereo (the reference's flow path needs only one)
-    n_sides = first.n_sides
-    for win in windows[1:]:
-        n_sides = n_sides + win.n_sides.to(dev)
-    need = n_sides.clamp(min=1.0).clamp(max=2.0)[:, None, None]
-    valid = support >= need
-    depth = torch.where(valid, depth, BACKGROUND_DEPTH)
+        # two side views where the window has two; a single-side bundle is
+        # classic two-view stereo (the reference's flow path needs only
+        # one)
+        n_sides = first.n_sides
+        for win in windows[1:]:
+            n_sides = n_sides + win.n_sides.to(dev)
+        need = n_sides.clamp(min=1.0).clamp(max=2.0)[:, None, None]
+        valid = support >= need
+        depth = torch.where(valid, depth, BACKGROUND_DEPTH)
     return {"depth": depth, "cost": best_c, "valid": valid}
 
 
@@ -194,8 +199,8 @@ def plane_sweep_depth(frame_main, frames_side, cam_main, cams_side,
     out = plane_sweep_depth_batched(
         frame_main[None], frames_side[None], cam_main[None], cams_side[None],
         side_valid[None],
-        torch.as_tensor(z_min, dtype=torch.float32, device=dev).reshape(1),
-        torch.as_tensor(z_max, dtype=torch.float32, device=dev).reshape(1),
+        to_device(z_min, dev, torch.float32).reshape(1),
+        to_device(z_max, dev, torch.float32).reshape(1),
         num_depths=num_depths,
         side_weight=None if side_weight is None else side_weight[None])
     return {k: v[0] for k, v in out.items()}

@@ -18,6 +18,8 @@ import torch
 
 from meshrecon_torch import BACKGROUND_DEPTH
 from meshrecon_torch.flow.pyramid import pad_reflect
+from meshrecon_torch.geometry.camera import invert_cameras
+from meshrecon_torch.utils.profiling import count, host_read, to_device
 
 _GN_TAIL = 64
 _GN_MIN_SWEEPS = 6
@@ -97,7 +99,7 @@ class GaussNewtonBand:
         own = slice(row0 - depth_row0, row0 - depth_row0 + hb)
         depth = depth_win[:, own]
 
-        main_inv = torch.linalg.inv(main_cams)
+        main_inv = invert_cameras(main_cams)
         cm = side_cams @ main_inv[:, None]  # (B, K, 4, 4)
 
         def cmc(i, j):
@@ -225,8 +227,7 @@ class GaussNewtonBand:
         det_ic = ic11 * ic22 - ic12 * ic12
         det_ic = torch.where(sv, det_ic.clamp(min=1e-30), 1.0)
         dev = z_final.device
-        log_pdf = (torch.log(torch.tensor(0.159, dtype=torch.float32,
-                                          device=dev))
+        log_pdf = (torch.log(to_device(0.159, dev, torch.float32))
                    + torch.log(det_ic).sum(dim=1) + 0.5 * exponent)
         pdf = torch.exp(log_pdf.clamp(-30.0, 30.0))
 
@@ -258,7 +259,7 @@ def gauss_newton(bands: list, gn_iters: int = 50) -> int:
             n_active = n_active + band.active.sum(dim=(1, 2)).to(first.device)
         tail = torch.where(it < _GN_MIN_SWEEPS, 0, _GN_TAIL)
         cond = (n_active > tail) & (it < gn_iters)
-        if not bool(cond.any()):  # host sync
+        if not host_read(cond.any()):
             break
         for band in bands:
             z_new, active_new = band.step(band.z, band.active)
@@ -267,6 +268,7 @@ def gauss_newton(bands: list, gn_iters: int = 50) -> int:
             band.active = torch.where(c, active_new, band.active)
         it = it + cond.to(torch.int64)
         sweeps += 1
+    count("gn_sweeps", sweeps)
     return sweeps
 
 

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from meshrecon_torch.pipeline.config import resolve_device
+from meshrecon_torch.utils.profiling import host_read
 
 
 def np_extract_camera_center(camera: np.ndarray) -> np.ndarray:
@@ -34,6 +35,18 @@ def extract_camera_center(camera):
     center = torch.linalg.svd(p34).Vh[..., -1, :]
     sign = torch.where(center[..., 3:4] < 0, -1.0, 1.0)
     return center * sign
+
+
+def invert_cameras(cameras):
+    """``torch.linalg.inv`` of (..., 4, 4) camera matrices, which raises
+    for a singular one: its status is read on the host once, a counted
+    host read (``utils.profiling.host_read``), where ``linalg.inv``'s own
+    check synchronizes once or twice by batch size."""
+    inv, info = torch.linalg.inv_ex(cameras)
+    if host_read(info.any()):
+        raise torch.linalg.LinAlgError(
+            "invert_cameras: a camera matrix is singular")
+    return inv
 
 
 def dehomogenize(points):

@@ -39,10 +39,12 @@ from meshrecon_torch.flow.farneback import farneback_flow
 from meshrecon_torch.flow.pyramid import compare
 from meshrecon_torch.flow.tile_warp import tile_warp_flow_batched
 from meshrecon_torch.flow.variational import variational_flow
+from meshrecon_torch.geometry.camera import invert_cameras
 from meshrecon_torch.raster.binned import render_depth_binned
 from meshrecon_torch.raster.fragment import (mix_background,
                                              projected_image_batched)
 from meshrecon_torch.raster.rasterizer import pixel_grid
+from meshrecon_torch.utils.profiling import span
 
 
 def check_options(variance: str, variance_taps: int) -> None:
@@ -96,56 +98,68 @@ def fused_main_update_batched(soup, soup_valid, cam_mains, frames_main,
     ``gn_sweeps`` (the Gauss-Newton sweep count, one host sync each).
     """
     check_options(variance, variance_taps)
-    frames_main = frames_main.to(torch.float32)
-    side_cams = side_cams.to(torch.float32)
-    side_frames = side_frames.to(torch.float32)
-    cam_mains = cam_mains.to(torch.float32)
-    side_valid = side_valid.to(torch.bool)
-    b, k = side_frames.shape[:2]
+    dev = side_frames.device
+    with span("flow_update", dev):
+        frames_main = frames_main.to(torch.float32)
+        side_cams = side_cams.to(torch.float32)
+        side_frames = side_frames.to(torch.float32)
+        cam_mains = cam_mains.to(torch.float32)
+        side_valid = side_valid.to(torch.bool)
+        b, k = side_frames.shape[:2]
 
-    # 1: every depth render (B mains + B*K sides) in one launch
-    all_cams = torch.cat([cam_mains[:, None], side_cams], dim=1)
-    all_depths = render_depth_binned(
-        all_cams.reshape(b * (k + 1), 4, 4), soup, soup_valid, height, width
-    ).reshape(b, k + 1, height, width)
-    depth0 = all_depths[:, 0]
+        # 1: every depth render (B mains + B*K sides) in one launch
+        with span("depth0", dev):
+            all_cams = torch.cat([cam_mains[:, None], side_cams], dim=1)
+            all_depths = render_depth_binned(
+                all_cams.reshape(b * (k + 1), 4, 4), soup, soup_valid,
+                height, width).reshape(b, k + 1, height, width)
+            depth0 = all_depths[:, 0]
 
-    # 2: projective texturing of every side at once, then the sequential
-    # mix chain (each side's mix sees the previous side's masked depth)
-    intens, masks = projected_image_batched(cam_mains, depth0, side_frames,
-                                            side_cams, all_depths[:, 1:],
-                                            shadow_sample=shadow_sample)
-    mixed_all, depth_final = mix_chain(intens, masks, frames_main, depth0,
-                                       side_valid)
+        # 2: projective texturing of every side at once, then the
+        # sequential mix chain (each side's mix sees the previous side's
+        # masked depth)
+        with span("scan", dev):
+            intens, masks = projected_image_batched(
+                cam_mains, depth0, side_frames, side_cams, all_depths[:, 1:],
+                shadow_sample=shadow_sample)
+            mixed_all, depth_final = mix_chain(intens, masks, frames_main,
+                                               depth0, side_valid)
 
-    # 3: one batched flow solve over every (main, side) pair
-    rewarped = None
-    if use_farneback:
-        flows2 = farneback_flow(frames_main[:, None], mixed_all,
-                                **farneback_params(height, width))
-    else:
-        flows2 = variational_flow(
-            frames_main[:, None], mixed_all, levels=levels, iters=iters,
-            warps=warps, alpha=alpha, solver=flow_solver,
-            want_residual=variance == "taylor", rho=rho,
-            fine_warps=fine_warps)
-        if variance == "taylor":
-            flows2, rewarped = flows2
+        # 3: one batched flow solve over every (main, side) pair, the
+        # taylor re-warp made inside it
+        rewarped = None
+        with span("flow", dev):
+            if use_farneback:
+                flows2 = farneback_flow(frames_main[:, None], mixed_all,
+                                        **farneback_params(height, width))
+            else:
+                flows2 = variational_flow(
+                    frames_main[:, None], mixed_all, levels=levels,
+                    iters=iters, warps=warps, alpha=alpha,
+                    solver=flow_solver, want_residual=variance == "taylor",
+                    rho=rho, fine_warps=fine_warps)
+                if variance == "taylor":
+                    flows2, rewarped = flows2
 
-    # 4: the variance's re-warp: taylor, or the remap-then-compare gather
-    if rewarped is None:
-        rewarped = tile_warp_flow_batched(
-            mixed_all.contiguous(), flows2[..., 0].contiguous(),
-            flows2[..., 1].contiguous(), taps=variance_taps)
-    var = compare(frames_main[:, None], rewarped)  # (B, K, H, W)
+        # 4: the variance's re-warp: taylor, or the remap-then-compare
+        # gather
+        if rewarped is None:
+            with span("rewarp", dev):
+                rewarped = tile_warp_flow_batched(
+                    mixed_all.contiguous(), flows2[..., 0].contiguous(),
+                    flows2[..., 1].contiguous(), taps=variance_taps)
+        with span("var", dev):
+            var = compare(frames_main[:, None], rewarped)  # (B, K, H, W)
 
-    # 5: triangulation and normals
-    out = triangulate_pixels_batched(flows2[..., 0], flows2[..., 1], var,
-                                     cam_mains, side_cams, side_valid,
-                                     depth_final, sampling=sampling)
-    normals = estimate_normals_batched(out["point4"], out["valid"],
-                                       out["pdf"], centers, centers_valid,
-                                       n_side)
+        # 5: triangulation and normals
+        with span("tri", dev):
+            out = triangulate_pixels_batched(
+                flows2[..., 0], flows2[..., 1], var, cam_mains, side_cams,
+                side_valid, depth_final, sampling=sampling)
+        with span("all", dev):
+            normals = estimate_normals_batched(
+                out["point4"], out["valid"], out["pdf"], centers,
+                centers_valid, n_side)
     return {
         "point4": out["point4"],
         "normals": normals,
@@ -295,62 +309,70 @@ def fused_sweep_update_batched(soup, soup_valid, cam_mains, frames_main,
     Returns dict(point4, normals, pdf, valid, depth) with leading B; depth
     is the main camera's rendered depth.
     """
-    frames_main = frames_main.to(torch.float32)
-    side_cams = side_cams.to(torch.float32)
-    side_frames = side_frames.to(torch.float32)
-    cam_mains = cam_mains.to(torch.float32)
-    side_valid = side_valid.to(torch.bool)
-    b, k = side_frames.shape[:2]
+    dev = side_frames.device
+    with span("sweep_update", dev):
+        frames_main = frames_main.to(torch.float32)
+        side_cams = side_cams.to(torch.float32)
+        side_frames = side_frames.to(torch.float32)
+        cam_mains = cam_mains.to(torch.float32)
+        side_valid = side_valid.to(torch.bool)
+        b, k = side_frames.shape[:2]
 
-    all_cams = torch.cat([cam_mains[:, None], side_cams], dim=1)
-    all_depths = render_depth_binned(
-        all_cams.reshape(b * (k + 1), 4, 4), soup, soup_valid, height, width
-    ).reshape(b, k + 1, height, width)
-    depth0 = all_depths[:, 0]
+        with span("depth0", dev):
+            all_cams = torch.cat([cam_mains[:, None], side_cams], dim=1)
+            all_depths = render_depth_binned(
+                all_cams.reshape(b * (k + 1), 4, 4), soup, soup_valid,
+                height, width).reshape(b, k + 1, height, width)
+            depth0 = all_depths[:, 0]
 
-    # visibility of the current surface estimate: the sweep's vote weights
-    _, masks = projected_image_batched(cam_mains, depth0, side_frames,
-                                       side_cams, all_depths[:, 1:],
-                                       shadow_sample=shadow_sample)
+        with span("scan", dev):
+            # visibility of the current surface estimate: the sweep's vote
+            # weights
+            _, masks = projected_image_batched(
+                cam_mains, depth0, side_frames, side_cams, all_depths[:, 1:],
+                shadow_sample=shadow_sample)
 
-    # per-camera sweep range from the rendered depth span, widened by 10%
-    dvalid = depth0 < BACKGROUND_DEPTH
-    big = 3e38
-    zlo = torch.where(dvalid, depth0, big).amin(dim=(1, 2))
-    zhi = torch.where(dvalid, depth0, -big).amax(dim=(1, 2))
-    any_valid = dvalid.any(dim=2).any(dim=1)
-    zlo = torch.where(any_valid, zlo, -1.0)
-    zhi = torch.where(any_valid, zhi, 1.0)
-    span = (zhi - zlo).clamp(min=0.05)
-    zlo = zlo - 0.1 * span
-    zhi = zhi + 0.1 * span
+            # per-camera sweep range from the rendered depth span, widened
+            # by 10%
+            dvalid = depth0 < BACKGROUND_DEPTH
+            big = 3e38
+            zlo = torch.where(dvalid, depth0, big).amin(dim=(1, 2))
+            zhi = torch.where(dvalid, depth0, -big).amax(dim=(1, 2))
+            any_valid = dvalid.any(dim=2).any(dim=1)
+            zlo = torch.where(any_valid, zlo, -1.0)
+            zhi = torch.where(any_valid, zhi, 1.0)
+            span_z = (zhi - zlo).clamp(min=0.05)
+            zlo = zlo - 0.1 * span_z
+            zhi = zhi + 0.1 * span_z
 
-    out = plane_sweep_depth_batched(
-        frames_main, side_frames, cam_mains, side_cams, side_valid, zlo, zhi,
-        num_depths=num_depths, side_weight=masks.to(torch.float32))
-
-    main_inv = torch.linalg.inv(cam_mains)
-    cols, rows = pixel_grid(height, width, frames_main.device)
-    x = cols[None, None, :].expand(b, height, width)
-    y = rows[None, :, None].expand(b, height, width)
-
-    def backproject(depth):
-        ndc4 = torch.stack([x, y, depth, torch.ones_like(x)], dim=-1)
-        return torch.einsum("bij,bhwj->bhwi", main_inv, ndc4)
-
-    for _ in range(passes - 1):
-        vis1 = out["valid"] & dvalid
-        masks2 = splat_visibility(backproject(out["depth"]), vis1, side_cams,
-                                  height, width)
         out = plane_sweep_depth_batched(
             frames_main, side_frames, cam_mains, side_cams, side_valid, zlo,
-            zhi, num_depths=num_depths, side_weight=masks2.to(torch.float32))
+            zhi, num_depths=num_depths, side_weight=masks.to(torch.float32))
 
-    valid = out["valid"] & dvalid & any_valid[:, None, None]
-    pts4 = backproject(out["depth"])
-    pdf = 1.0 / (1.0 + out["cost"])
-    normals = estimate_normals_batched(pts4, valid, pdf, centers,
-                                       centers_valid, n_side)
+        main_inv = invert_cameras(cam_mains)
+        cols, rows = pixel_grid(height, width, frames_main.device)
+        x = cols[None, None, :].expand(b, height, width)
+        y = rows[None, :, None].expand(b, height, width)
+
+        def backproject(depth):
+            ndc4 = torch.stack([x, y, depth, torch.ones_like(x)], dim=-1)
+            return torch.einsum("bij,bhwj->bhwi", main_inv, ndc4)
+
+        for _ in range(passes - 1):
+            vis1 = out["valid"] & dvalid
+            masks2 = splat_visibility(backproject(out["depth"]), vis1,
+                                      side_cams, height, width)
+            out = plane_sweep_depth_batched(
+                frames_main, side_frames, cam_mains, side_cams, side_valid,
+                zlo, zhi, num_depths=num_depths,
+                side_weight=masks2.to(torch.float32))
+
+        with span("all", dev):
+            valid = out["valid"] & dvalid & any_valid[:, None, None]
+            pts4 = backproject(out["depth"])
+            pdf = 1.0 / (1.0 + out["cost"])
+            normals = estimate_normals_batched(pts4, valid, pdf, centers,
+                                               centers_valid, n_side)
     return {
         "point4": pts4,
         "normals": normals,

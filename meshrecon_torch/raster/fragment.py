@@ -22,6 +22,7 @@ import torch
 
 from meshrecon_torch import BACKGROUND_DEPTH
 from meshrecon_torch.flow.tile_warp import tile_warp_sample2_batched
+from meshrecon_torch.geometry.camera import invert_cameras
 from meshrecon_torch.raster.rasterizer import pixel_grid
 
 
@@ -119,7 +120,7 @@ def projected_image_batched(cam_mains, depth_mains, frames, projectors,
     z = depth_mains[:, None]  # (B, 1, H, W)
     valid = z != BACKGROUND_DEPTH
 
-    main_inv = torch.linalg.inv(cam_mains.to(torch.float32))
+    main_inv = invert_cameras(cam_mains.to(torch.float32))
     side = projectors.to(torch.float32) @ main_inv[:, None]
 
     def apply_side(row):

@@ -1,14 +1,32 @@
-"""Per-stage wall timers (port of meshrecon/utils/profiling.StageTimer,
-``stage_report`` and ``profile_trace``), and the measurement helpers of
-the port's tools.
+"""The port's recorder of spans and counters (port of
+meshrecon/utils/profiling.StageTimer, ``stage_report`` and
+``profile_trace``), and the measurement helpers of the port's tools.
 
-A stage's time ends when the work that produced its value is done: for a
-value that holds a CUDA tensor the timer calls ``torch.cuda.synchronize``
-on that tensor's device, so each stage reads on the card's timeline.
+A span is a named interval of the program: its parent (the enclosing
+span of its thread), its update (the number of the top-level span it lies
+under), its host start and end on ``time.time_ns()``, which is
+torch.profiler's clock, and on a CUDA device its device-timeline time,
+between two timing events recorded on the current stream at its entry and
+at its exit. Recording a span never synchronizes the device: the events
+are read when totals are read, or by ``query`` once many are pending.
+
+A span records into the innermost enabled :class:`StageTimer` whose stage
+is open on its thread (the CLI at ``-v 2``, the tools); else, while
+torch.profiler runs, into the process recorder :data:`RECORDER` (a traced
+benchmark window, ``--profile``); else nowhere, for two attribute reads.
+Spans stay out of the profiler's event stream: the profiler mirrors a
+range that encloses kernels onto the device's timeline, where a trace
+would count it as device work.
+
+Counters: ``host_syncs`` and ``sync_wait`` (host seconds blocked) count
+the calls of the dense update that wait for the device, each made through
+:func:`host_read` or :func:`to_device`; ``gn_sweeps`` counts Gauss-Newton
+sweeps.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -19,6 +37,15 @@ import time
 from collections import defaultdict
 
 import torch
+
+_PROFILER = torch.autograd.profiler  # its _is_profiler_enabled flag
+# pending spans (device events not yet read) past which the oldest are
+# read without waiting
+PENDING_MAX = 2048
+# the Chrome-trace category of the spans profile_trace writes
+SPAN_CAT = "meshrecon_span"
+# the spans ended while profile_trace's block runs (None outside one)
+_EXPORT = None
 
 
 def _cuda_devices(value, found):
@@ -41,19 +68,111 @@ def _sync(value):
     return value
 
 
-class StageTimer:
-    """Accumulates wall time, call counts and pixel counts per named stage.
+class _Local(threading.local):
+    def __init__(self):
+        self.timers = []  # enabled StageTimers with a stage open
+        self.open = []  # open spans, innermost last
+        self.tid = threading.get_native_id()
 
-    ``with timer.stage(name, pixels) as done: done(value)`` times the block
-    until ``value`` is computed on its device. Threads may share a timer
-    (the scenes of ``reconstruct_scenes``): each stage's totals then add
-    the threads' overlapping times."""
+
+_LOCAL = _Local()
+
+
+def _recorder():
+    """Where a span or a counter of this thread records, or None."""
+    timers = _LOCAL.timers
+    if timers:
+        return timers[-1]
+    if _PROFILER._is_profiler_enabled:
+        return RECORDER
+    return None
+
+
+class _Off:
+    """The span of a thread that records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class Span:
+    """One recorded interval: ``name``, ``parent`` (a Span or None),
+    ``update``, ``tid``, ``t0_ns`` and ``t1_ns`` on ``time.time_ns()``,
+    ``child_ns`` (its children's host time) and ``device_s`` (None off
+    CUDA, and until its recorder resolves it)."""
+
+    __slots__ = ("recorder", "name", "pixels", "device", "end_device",
+                 "parent", "update", "tid", "t0_ns", "t1_ns", "child_ns",
+                 "events", "device_s")
+
+    def __init__(self, recorder, name: str, pixels: int = 0, device=None):
+        self.recorder, self.name, self.pixels = recorder, name, pixels
+        self.device = self.end_device = device
+        self.child_ns = 0
+        self.events = self.device_s = None
+
+    def __enter__(self):
+        rec = self.recorder
+        stack = _LOCAL.open
+        parent = stack[-1] if stack and stack[-1].recorder is rec else None
+        self.parent = parent
+        self.update = rec._top() if parent is None else parent.update
+        self.tid = _LOCAL.tid
+        if self.device is not None:
+            self.events = rec._start(self.device)
+        stack.append(self)
+        self.t0_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1_ns = time.time_ns()
+        _LOCAL.open.pop()
+        if self.events is not None:
+            self.recorder._end(self)
+        if self.parent is not None:
+            self.parent.child_ns += self.t1_ns - self.t0_ns
+        self.recorder._finish(self)
+        return False
+
+
+class StageTimer:
+    """Totals, counters and pending spans of one recorder.
+
+    ``with timer.stage(name, pixels) as done: done(value)`` records a span
+    named ``name`` and, while it is open, makes the timer the recorder of
+    the thread's spans (:func:`span`). ``done(value)`` names the device
+    whose current stream takes the span's end event: the one CUDA device
+    holding ``value``'s tensors. The stage waits for nothing.
+
+    Per name: ``counts`` (calls), ``host_s`` (host seconds), ``self_s``
+    (host seconds less the children's), ``pixels``, and, resolving the
+    pending events first, ``times`` (device-timeline seconds where the span
+    ran on CUDA, host seconds otherwise) and ``device_s`` (the CUDA part).
+    ``counters`` by name; ``top_spans`` counts the top-level spans, which
+    number the updates. Threads may share a timer (the scenes of
+    ``reconstruct_scenes``): each total then adds the threads' overlapping
+    times."""
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
-        self.times = defaultdict(float)
         self.counts = defaultdict(int)
+        self.host_s = defaultdict(float)
+        self.self_s = defaultdict(float)
         self.pixels = defaultdict(int)
+        self.counters = {}
+        self.top_spans = 0
+        self._times = defaultdict(float)
+        self._device_s = defaultdict(float)
+        self._pending = collections.deque()
+        self._pool = defaultdict(list)  # free timing events by device index
         self._lock = threading.Lock()
 
     @contextlib.contextmanager
@@ -61,33 +180,212 @@ class StageTimer:
         if not self.enabled:
             yield lambda value=None: value
             return
-        t0 = time.perf_counter()
-        box = {}
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if torch.cuda.is_initialized() else None)
+        s = Span(self, name, pixels, device)
+        s.end_device = None
 
         def done(value=None):
-            box["value"] = value
+            found = _cuda_devices(value, set())
+            s.end_device = found.pop() if len(found) == 1 else None
             return value
 
-        yield done
-        _sync(box.get("value"))
+        _LOCAL.timers.append(self)
+        try:
+            with s:
+                yield done
+        finally:
+            _LOCAL.timers.pop()
+
+    @property
+    def times(self):
+        self.resolve()
+        return self._times
+
+    @property
+    def device_s(self):
+        self.resolve()
+        return self._device_s
+
+    def add(self, name: str, value) -> None:
+        """Add ``value`` to the counter ``name``."""
         with self._lock:
-            self.times[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-            self.pixels[name] += pixels
+            self.counters[name] = self.counters.get(name, 0) + value
+
+    def resolve(self):
+        """Read every pending span's events, waiting for the device."""
+        with self._lock:
+            self._resolve(wait=True)
+        return self
+
+    def clear(self) -> None:
+        """Forget every total, counter and span."""
+        with self._lock:
+            self._resolve(wait=True)
+            for totals in (self.counts, self.host_s, self.self_s,
+                           self.pixels, self.counters, self._times,
+                           self._device_s):
+                totals.clear()
+            self.top_spans = 0
 
     def report(self) -> str:
+        times = self.times
         lines = ["stage                          calls   total_s    Mpix/s"]
-        for name in sorted(self.times, key=lambda n: -self.times[n]):
-            t = self.times[name]
+        for name in sorted(times, key=lambda n: -times[n]):
+            t = times[name]
             mpix = (self.pixels[name] / t / 1e6
                     if t > 0 and self.pixels[name] else 0)
             lines.append(
                 f"{name:<30} {self.counts[name]:>5} {t:>9.3f} {mpix:>9.1f}")
+        if self.counters:
+            lines.append("counter                            total")
+            updates = self.counts.get("flow_update", 0)
+            for name in sorted(self.counters):
+                row = f"{name:<30} {self.counters[name]:>9.6g}"
+                if name == "gn_sweeps" and updates:
+                    row += (f"  ({self.counters[name] / updates:.1f} a "
+                            "flow_update)")
+                lines.append(row)
         return "\n".join(lines)
+
+    # -- the recording side ----------------------------------------------
+    def _top(self) -> int:
+        with self._lock:
+            self.top_spans += 1
+            return self.top_spans
+
+    def _start(self, device):
+        with self._lock:
+            pool = self._pool[device.index]
+            events = [pool.pop() if pool else
+                      torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record(torch.cuda.current_stream(device))
+        return events
+
+    def _end(self, span: Span) -> None:
+        if span.end_device != span.device:  # a stage whose value is
+            with self._lock:  # elsewhere, or not on CUDA: host time
+                self._pool[span.device.index].extend(span.events)
+            span.events = None
+            return
+        span.events[1].record(torch.cuda.current_stream(span.device))
+
+    def _finish(self, span: Span) -> None:
+        host = (span.t1_ns - span.t0_ns) / 1e9
+        name = span.name
+        with self._lock:
+            self.counts[name] += 1
+            self.host_s[name] += host
+            self.self_s[name] += host - span.child_ns / 1e9
+            self.pixels[name] += span.pixels
+            if span.events is None:
+                self._times[name] += host
+            else:
+                self._pending.append(span)
+                if len(self._pending) > PENDING_MAX:
+                    self._resolve(wait=False)
+        if _EXPORT is not None:
+            _EXPORT.append(span)
+
+    def _resolve(self, wait: bool) -> None:
+        """Under the lock: the pending spans' device times, oldest first;
+        without ``wait``, up to the first whose end the device has not
+        reached."""
+        pending = self._pending
+        while pending:
+            span = pending[0]
+            start, end = span.events
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                return
+            span.device_s = start.elapsed_time(end) / 1e3
+            self._times[span.name] += span.device_s
+            self._device_s[span.name] += span.device_s
+            self._pool[span.device.index].extend(span.events)
+            span.events = None
+            pending.popleft()
+
+    def _synced(self, wait_ns: int) -> None:
+        with self._lock:
+            c = self.counters
+            c["host_syncs"] = c.get("host_syncs", 0) + 1
+            c["sync_wait"] = c.get("sync_wait", 0) + wait_ns / 1e9
 
 
 def stage_report(timer: StageTimer) -> str:
     return timer.report()
+
+
+# the process recorder: spans and counters while torch.profiler runs and
+# no enabled StageTimer has a stage open on the thread
+RECORDER = StageTimer()
+
+
+def span(name: str, device=None):
+    """``with span(name, device):`` a span of the thread's recorder (see
+    the module's docstring); ``device``: where the block's work runs, its
+    device-timeline time read on a CUDA device."""
+    rec = _recorder()
+    if rec is None:
+        return _OFF
+    if device is None or device.type != "cuda":
+        device = None
+    elif device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return Span(rec, name, 0, device)
+
+
+def count(name: str, value=1) -> None:
+    """Add ``value`` to the thread's recorder's counter ``name``."""
+    rec = _recorder()
+    if rec is not None:
+        rec.add(name, value)
+
+
+def _blocked(call):
+    """``call()``, which waits for the device: one ``host_syncs`` and its
+    host time in ``sync_wait``. The count is the call site's on a CUDA
+    device, so a CPU run counts what the card's would."""
+    rec = _recorder()
+    if rec is None:
+        return call()
+    t0 = time.perf_counter_ns()
+    out = call()
+    rec._synced(time.perf_counter_ns() - t0)
+    return out
+
+
+def host_read(value):
+    """``value.item()``, the dense update's one way to read a device
+    value into Python: a counted host sync."""
+    return _blocked(value.item)
+
+
+def to_device(value, device, dtype=None):
+    """``torch.as_tensor(value, dtype, device)``. A value that is not a
+    tensor of ``device``'s type is copied from the host: a counted host
+    sync, since on a CUDA device the copy from pageable memory waits for
+    the stream."""
+    if (isinstance(value, torch.Tensor)
+            and value.device.type == torch.device(device).type):
+        return torch.as_tensor(value, dtype=dtype, device=device)
+    return _blocked(lambda: torch.as_tensor(value, dtype=dtype,
+                                            device=device))
+
+
+def span_events(spans, base_ns: int = 0) -> list:
+    """Chrome-trace complete events (category ``meshrecon_span``) of
+    resolved spans, in microseconds from ``base_ns`` on their clock."""
+    pid = os.getpid()
+    return [{"ph": "X", "cat": SPAN_CAT, "name": s.name, "pid": pid,
+             "tid": s.tid, "ts": (s.t0_ns - base_ns) / 1e3,
+             "dur": (s.t1_ns - s.t0_ns) / 1e3,
+             "args": {"update": s.update,
+                      "parent": None if s.parent is None else s.parent.name,
+                      "device_ms": (None if s.device_s is None
+                                    else s.device_s * 1e3)}}
+            for s in spans]
 
 
 # the categories of torch.profiler's Chrome trace that run on the device
@@ -121,7 +419,10 @@ def profile_trace(log_dir: str, device="cuda", host: bool = True):
     stop, the block and a synchronize of the device), ``device_busy_s``,
     ``busy_share``, ``device_events``. The busy
     figures need only the device's events: without the host's the trace
-    is a third smaller and the pass less slowed."""
+    is a third smaller and the pass less slowed. The spans that ended in
+    the block are written into the trace after its export, as host events
+    of the category ``meshrecon_span`` on the export's time base."""
+    global _EXPORT
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.device(device).type == "cuda"
@@ -130,16 +431,29 @@ def profile_trace(log_dir: str, device="cuda", host: bool = True):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     summary = {}
-    t0 = time.perf_counter()
-    with profile(activities=activities) as prof:
-        yield summary
-        if cuda:
-            torch.cuda.synchronize(device)
-    wall = time.perf_counter() - t0
+    outer, _EXPORT = _EXPORT, []
+    spans = _EXPORT
+    try:
+        t0 = time.perf_counter()
+        with profile(activities=activities) as prof:
+            yield summary
+            if cuda:
+                torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    finally:
+        _EXPORT = outer
     path = os.path.join(log_dir, "trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
-        busy, events = device_busy(json.load(f))
+        trace = json.load(f)
+    busy, events = device_busy(trace)
+    if spans:
+        for rec in {s.recorder for s in spans}:
+            rec.resolve()
+        trace["traceEvents"] += span_events(
+            spans, trace.get("baseTimeNanoseconds", 0))
+        with open(path, "w") as f:
+            json.dump(trace, f)
     summary.update(wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
                    device_events=events)
     with open(os.path.join(log_dir, "device_busy.json"), "w") as f:
