@@ -132,7 +132,19 @@ against this tree's in the same alternating rounds, and must equal them
    2), seed 3; then with ``--variance-mode rewarp``; then with ``-f``.
    Every kernel of each run's path must launch, the OBJ must have faces,
    and its vertices must lie on the scene's fitted sphere within the run's
-   bounds. Prints the wall seconds of each run and of each stage.
+   bounds. Prints the wall seconds of each run and of each stage. The
+   flow updates' paths (here, in step 5 and in the bench) include GN's
+   four kernels (GN_SOBEL, GN_WALK, GN_EXIT, GN_FINISH). After the default
+   run, the GN phase (``gn_phase``) on the inputs of its largest
+   triangulation (iteration 2's B=4, K=8, 480x640), taylor then exact:
+   ``triangulate_pixels_batched`` on the card bit for bit against the
+   eager sweeps on the same card inputs (``GaussNewtonBand``,
+   ``gauss_newton``, ``result``), the sweep count equal, both timed; then
+   each GN kernel against its share of the eager path (GN_SOBEL against
+   ``sobel_gradient``, GN_WALK's z against the eager z, GN_EXIT against
+   ``gn_exit_plain``, GN_FINISH against ``result``), bound 0, with its ms,
+   the eager share's ms and its bound (the walk's operations from the
+   pixel-steps it took).
 9. The video entry points, three phases, each with its wall seconds:
    ``video``: a 640x480 MJPG (koule-tr's 31 frames) whose B, G and R
    planes are the synthetic sphere frames of seeds 3, 4 and 5 made on
@@ -209,8 +221,8 @@ against this tree's in the same alternating rounds, and must equal them
 13. Prints one JSON line of per-kernel results, then the device line
    ``{"ok": true, "device": {...}}`` last. Each kernel's ``launches`` is
    the count of the path it serves, read just after that path's run with
-   the counters reset just before: SETUP, BIN, K1, K2, K3, K3c and K4 from
-   the default reconstruction, K3b from the rewarp reconstruction, K6 from
+   the counters reset just before: SETUP, BIN, K1, K2, K3, K3c, K4 and
+   GN's four kernels from the default reconstruction, K3b from the rewarp reconstruction, K6 from
    the solver check, K5a and K5b from the raster sweep tool's run, R1-R4
    from the
    roofline tool's run (R3's and R4's eager launches plus its CUDA-graph
@@ -2049,6 +2061,170 @@ def k3c_phase(torch, dev, res, sweep_args):
                 work=_k3c_work(px, share), library_ms=lib_ms)
 
 
+# GN's float32 operations (depth/triangulate.py, counted from the eager
+# ops, a division, log or exp counted as one): a valid side's terms at a
+# pixel (the taylor form; the exact mode's three bilinear taps add
+# GN_TAP_OPS), a valid side's share of a step, a pixel's share of a step,
+# a valid side's share of the result, a pixel's share of the result
+GN_TERM_OPS, GN_TAP_OPS = 90, 35
+GN_STEP_SIDE_OPS, GN_STEP_OPS = 27, 13
+GN_RESULT_SIDE_OPS, GN_RESULT_OPS = 27, 41
+
+
+def _keep_largest(torch, store):
+    """``make`` for :func:`_wrap`: the triangulation whose flows are the
+    largest is kept in ``store`` (its inputs copied, the flows' two
+    channels as one (..., 2) tensor, as the update hands them over)."""
+
+    def make(original):
+        def call(flx, fly, var, *rest, **kwargs):
+            if not store or flx.numel() > store["args"][0].numel():
+                flows = torch.stack([flx, fly], -1)
+                store["args"] = (flows[..., 0], flows[..., 1], var.clone(),
+                                 *(t.clone() for t in rest))
+                store["sampling"] = kwargs.get("sampling", "taylor")
+            return original(flx, fly, var, *rest, **kwargs)
+        return call
+
+    return make
+
+
+def _gn_work(kind, args, hist, stop, exact):
+    """(bytes, float32 operations) of one GN kernel on a triangulation's
+    inputs ``args``, from its step-count histogram ``hist`` (B, G + 1) and
+    stop sweeps ``stop`` (B,): the least of each, the walk's steps as the
+    pixels took them (a warp walks while any of its pixels does)."""
+    flx, sv, depth = args[0], args[5], args[6]
+    b, _, h, w = flx.shape
+    if kind == "sobel":
+        return (depth.numel() * 12, depth.numel() * 12)
+    bins = hist.shape[1]
+    if kind == "exit":
+        return (bins * b * 4 + b * 8 + 24, bins * b * 3)
+    px = h * w
+    kv = sv.sum(1).tolist()  # valid sides of each item
+    hist = hist.cpu().tolist()
+    stop = stop.cpu().tolist()
+    terms = GN_TERM_OPS + (GN_TAP_OPS if exact else 0)
+    planes_in = sum(kv) * px * 12 + b * px * 12  # flows, var; depth, grads
+    if kind == "walk":
+        ops = sum(px * k * terms + sum(t * c for t, c in enumerate(hh))
+                  * (k * GN_STEP_SIDE_OPS + GN_STEP_OPS)
+                  for k, hh in zip(kv, hist))
+        return (planes_in + b * px * 8 + bins * b * 4, ops)
+    # finish: the terms again, the steps past the walk's, the result
+    replay = [sum(c * s for t, c in enumerate(hh) if t > s)
+              for hh, s in zip(hist, stop)]
+    ops = sum(px * k * (terms + GN_RESULT_SIDE_OPS) + px * GN_RESULT_OPS
+              + r * (k * GN_STEP_SIDE_OPS + GN_STEP_OPS)
+              for k, r in zip(kv, replay))
+    return (planes_in + b * px * (8 + 21) + b * 64, ops)
+
+
+def gn_phase(torch, dev, res, captured):
+    """GN (the Gauss-Newton triangulation, csrc/triangulate.cu) at the
+    shape of the default reconstruction's largest flow update (koule-tr's
+    iteration 2: B=4, K=8, 480x640), on its own inputs, taylor (the
+    update's sampling) then exact: ``triangulate_pixels_batched`` (the
+    card's path: GN_SOBEL, GN_WALK, GN_EXIT, GN_FINISH) bit for bit
+    against the eager sweeps on the same card inputs
+    (``GaussNewtonBand`` + ``gauss_newton`` + ``result``), the sweep
+    count equal, and each kernel against its share of the eager path
+    (GN_SOBEL against ``sobel_gradient``, GN_WALK's z against the eager
+    z wherever a pixel stopped by its item's stop sweep, GN_EXIT against
+    ``gn_exit_plain``, GN_FINISH against ``result``), with its bound."""
+    from meshrecon_torch.depth import triangulate as tri
+
+    if "args" not in captured:
+        raise AssertionError("GN: the default reconstruction triangulated "
+                             "nothing")
+    args = captured["args"]
+    b, k, h, w = args[0].shape
+    print(f"GN: the default reconstruction's largest triangulation: "
+          f"B={b} K={k} {h}x{w}, valid sides {args[5].sum(1).tolist()}, "
+          f"flows read in place: {tri._flow_planes(*args[:2])[2] == 2}")
+    samplings = [captured["sampling"]]
+    samplings += [s for s in ("taylor", "exact") if s not in samplings]
+    for sampling in samplings:
+        exact = sampling == "exact"
+        label = f"{b}x{k}x{h}x{w} {sampling}"
+        out = tri.triangulate_pixels_batched(*args, sampling=sampling)
+        eager = tri.GaussNewtonBand(*args, sampling)
+        sweeps = tri.gauss_newton([eager], 50)
+        ref = eager.result(sweeps)
+        torch.cuda.synchronize()
+        errs = [_bits_err(torch, out[key], ref[key])
+                for key in ("point4", "pdf")]
+        mismatch = int((out["valid"] != ref["valid"]).sum())
+        if out["gn_sweeps"] != sweeps or mismatch or max(errs):
+            raise AssertionError(
+                f"GN [{label}]: sweeps {out['gn_sweeps']} against {sweeps}, "
+                f"point4 / pdf errors {errs}, valid mismatch {mismatch}")
+        path_ms = _cuda_ms(torch, lambda: tri.triangulate_pixels_batched(
+            *args, sampling=sampling), 10)
+
+        def eager_call():
+            band = tri.GaussNewtonBand(*args, sampling)
+            return band.result(tri.gauss_newton([band], 50))
+
+        eager_ms = _cuda_ms(torch, eager_call, 2)
+        print(f"GN [{label}]: bitwise the eager loop (sweeps {sweeps}, "
+              f"valid share {float(out['valid'].float().mean()):.4f}); "
+              f"triangulation {path_ms:.4f} ms, eager {eager_ms:.4f} ms")
+
+        # each kernel on the same inputs, against its share of the eager
+        # path
+        band = tri.KernelBand(*args, sampling)
+        depth = band.depth
+        gx, gy = tri.gn_sobel(depth)
+        ref_g = tri.sobel_gradient(depth)
+        err = max(_bits_err(torch, gx, ref_g[0]),
+                  _bits_err(torch, gy, ref_g[1]))
+        res.add(tri.GN_SOBEL, label, err, 0.0,
+                _cuda_ms(torch, lambda: tri.gn_sobel(depth), 50),
+                _cuda_ms(torch, lambda: tri.sobel_gradient(depth), 20),
+                work=_gn_work("sobel", args, None, None, exact))
+        hist = band.walk(50)
+        stop, info = tri.gn_exit(hist, band.inv_status)
+        plain_stop, plain_sweeps, plain_steps = tri.gn_exit_plain(hist.cpu())
+        got = info.tolist()
+        err = float(max(abs(x - y) for x, y in zip(
+            stop.tolist() + got[:2], plain_stop + [plain_sweeps, plain_steps])))
+        # the walk's z where a pixel stopped by its item's stop sweep is
+        # the eager z after the item's sweeps
+        done = band.t <= stop[:, None, None]
+        err_walk = _bits_err(torch, torch.where(done, band.z, 0.0),
+                             torch.where(done, eager.z, 0.0))
+        if got[0] != sweeps or got[2]:
+            raise AssertionError(f"GN [{label}]: GN_EXIT gives {got}, the "
+                                 f"eager loop {sweeps} sweeps")
+        print(f"GN [{label}]: stop sweeps {stop.tolist()}, pixel-steps "
+              f"{got[1]} of {b * h * w * sweeps} the sweeps allow "
+              f"({got[1] / max(b * h * w * sweeps, 1) * 100:.2f}%), pixels "
+              f"that stopped by their item's sweep "
+              f"{float(done.float().mean()):.4f}")
+        res.add(tri.GN_WALK, label, err_walk, 0.0,
+                _cuda_ms(torch, lambda: band.walk(50), 20),
+                _cuda_ms(torch, lambda: tri.gauss_newton(
+                    [tri.GaussNewtonBand(*args, sampling)], 50), 2),
+                work=_gn_work("walk", args, hist, stop, exact))
+        band.walk(50)  # the z and t that finish reads
+        res.add(tri.GN_EXIT, label, err, 0.0,
+                _cuda_ms(torch, lambda: tri.gn_exit(hist, band.inv_status),
+                         50),
+                _cuda_ms(torch, lambda: tri.gn_exit_plain(hist.cpu()), 5),
+                work=_gn_work("exit", args, hist, stop, exact))
+        fin = band.finish(stop)
+        err = max(_bits_err(torch, fin[key], ref[key])
+                  for key in ("point4", "pdf"))
+        if not torch.equal(fin["valid"], ref["valid"]):
+            err = float("inf")
+        res.add(tri.GN_FINISH, label, err, 0.0,
+                _cuda_ms(torch, lambda: band.finish(stop), 20),
+                _cuda_ms(torch, lambda: eager.result(sweeps), 5),
+                work=_gn_work("finish", args, hist, stop, exact))
+
+
 def _swept_ndc(out, mains):
     """NDC depth of the swept points: point4 projected by the main camera."""
     p = np.einsum("bij,bhwj->bhwi", mains.astype(np.float64),
@@ -3241,6 +3417,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from meshrecon_torch import problems, state
+    from meshrecon_torch.depth import triangulate
     from meshrecon_torch.flow import jacobi, tile_warp
     from meshrecon_torch.kernels import all_kernels, library
     from meshrecon_torch.meshing import native
@@ -3270,6 +3447,8 @@ def main(argv=None) -> int:
         binned.K1, tile_warp.K2, tile_warp.K3, tile_warp.K3B, tile_warp.K3C,
         jacobi.K4, jacobi.K6)
     SETUP, BIN = binned.SETUP, binned.BIN  # K1's binning
+    GN = (triangulate.GN_SOBEL, triangulate.GN_WALK, triangulate.GN_EXIT,
+          triangulate.GN_FINISH)  # every flow update's triangulation
     args_np = list(problems.fused_problem(B, K, H, W, seed=SEED))
     args_np[0], args_np[1] = state.pack_soup(problems.sphere_soup(64, 128))
     res = Results()
@@ -3296,28 +3475,35 @@ def main(argv=None) -> int:
 
     render = (SETUP, BIN, K1)
     run_slice(torch, dev, args_np, "flow update", UPDATES,
-              (*render, K2, K3, K4))
+              (*render, K2, K3, K4, *GN))
     for label, path, options in (
-            ("flow update rewarp", (*render, K2, K3, K4, K3B),
+            ("flow update rewarp", (*render, K2, K3, K4, K3B, *GN),
              dict(variance="rewarp")),
-            ("flow update farneback", (*render, K2, K3, K3B),
+            ("flow update farneback", (*render, K2, K3, K3B, *GN),
              dict(use_farneback=True)),
-            ("flow update mg", (*render, K2, K3), dict(flow_solver="mg")),
-            ("flow update shadow bilinear", (*render, K2, K3, K4),
+            ("flow update mg", (*render, K2, K3, *GN),
+             dict(flow_solver="mg")),
+            ("flow update shadow bilinear", (*render, K2, K3, K4, *GN),
              dict(shadow_sample="bilinear"))):
         run_slice(torch, dev, args_np, label, VARIANT_UPDATES, path,
                   **options)
 
-    bench_phase(torch, (*render, K2, K3, K4))
+    bench_phase(torch, (*render, K2, K3, K4, *GN))
 
     sweep_args = sweep_problem(torch, dev)
     k3c_phase(torch, dev, res, state.from_numpy(sweep_args, dev))
     run_sweep(torch, dev, sweep_args)
-    default = run_e2e(torch, dev, "default", [],
-                      (*render, K2, K3, K3C, K4))
+    captured = {}
+    with _wrap(meshrecon_torch.pipeline.fused, "triangulate_pixels_batched",
+               _keep_largest(torch, captured)):
+        default = run_e2e(torch, dev, "default", [],
+                          (*render, K2, K3, K3C, K4, *GN))
+    gn_phase(torch, dev, res, captured)
+    del captured
     rewarp = run_e2e(torch, dev, "rewarp", ["--variance-mode", "rewarp"],
-                     (*render, K2, K3, K3C, K4, K3B))
-    run_e2e(torch, dev, "farneback", ["-f"], (*render, K2, K3, K3C, K3B))
+                     (*render, K2, K3, K3C, K4, K3B, *GN))
+    run_e2e(torch, dev, "farneback", ["-f"],
+            (*render, K2, K3, K3C, K3B, *GN))
     video_phase(torch, dev, (*render, K2, K3, K3C, K4))
     scenes_phase(torch, dev, (*render, K2, K3, K3B, K4))
     drivers_phase(torch, dev, (K3, K3B), render)
@@ -3330,15 +3516,15 @@ def main(argv=None) -> int:
 
     # each kernel's launches on the path it serves
     path_launches = {k.name: default[k.name]
-                     for k in (*render, K2, K3, K3C, K4)}
+                     for k in (*render, K2, K3, K3C, K4, *GN)}
     path_launches[K3B.name] = rewarp[K3B.name]
     path_launches[K6.name] = solver_launches[K6.name]
     for k in (binned.K5A, binned.K5B):
         path_launches[k.name] = raster_launches[k.name]
     for k in (roofline.R1, roofline.R2, roofline.R3, roofline.R4):
         path_launches[k.name] = roof_launches[k.name]
-    print("launches: SETUP, BIN, K1, K2, K3, K3c, K4 from the default "
-          "reconstruction, "
+    print("launches: SETUP, BIN, K1, K2, K3, K3c, K4, GN_SOBEL, GN_WALK, "
+          "GN_EXIT, GN_FINISH from the default reconstruction, "
           "K3b from the rewarp reconstruction, K6 from the solver check, "
           "K5a and K5b from the raster sweep tool, R1-R4 from the roofline "
           "tool (R3 and R4 with its graph replays)")

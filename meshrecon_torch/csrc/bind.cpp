@@ -48,6 +48,12 @@ int mr_hs_divide(P, P, P, I, P);
 int mr_roofline_copy(P, P, I, P);
 int mr_roofline_fma(P, P, I, I, P);
 int mr_roofline_tiny(P, P, I, I, P);
+int mr_gn_sobel(P, P, P, I, I, I, P);
+int mr_gn_walk(P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
+               I, F, F, F, P);
+int mr_gn_exit(P, P, P, P, I, I, I, I, P);
+int mr_gn_finish(P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                 I, I, I, I, I, F, F, F, F, P);
 }
 
 #define MR_ENTRIES(X)                                                        \
@@ -64,7 +70,11 @@ int mr_roofline_tiny(P, P, I, I, P);
   X(mr_hs_divide)                                                            \
   X(mr_roofline_copy)                                                        \
   X(mr_roofline_fma)                                                         \
-  X(mr_roofline_tiny)
+  X(mr_roofline_tiny)                                                        \
+  X(mr_gn_sobel)                                                             \
+  X(mr_gn_walk)                                                              \
+  X(mr_gn_exit)                                                              \
+  X(mr_gn_finish)
 
 namespace {
 

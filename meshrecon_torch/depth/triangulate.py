@@ -8,8 +8,18 @@ The Gauss-Newton loop keeps the reference's global exit: an item stops
 once at most ``_GN_TAIL`` of its pixels are still active after at least
 ``_GN_MIN_SWEEPS`` sweeps, or after ``gn_iters`` sweeps, and the batch
 sweeps while any item has not stopped (the vmapped ``while_loop``'s
-semantics). Each sweep tests that condition on the host: one device sync
-per sweep, counted in the output's ``gn_sweeps``.
+semantics); the output's ``gn_sweeps`` is the batch's sweep count.
+
+- On the CPU (the plain version): :class:`GaussNewtonBand` and
+  :func:`gauss_newton`, eager sweeps, each ending in a host test of the
+  exit.
+- On CUDA: :class:`KernelBand`, the GN kernels (``csrc/triangulate.cu``).
+  GN_SOBEL takes the depth window's gradients; GN_WALK walks each pixel
+  to its own stop and counts its steps in a histogram per item; GN_EXIT finds each item's stop sweep from the
+  histograms (a pixel's steps depend on no other pixel, so its z after s
+  sweeps is its z after min(s, its steps)); GN_FINISH writes each pixel's
+  result at that sweep. The host reads the sweep count once, after
+  GN_FINISH is queued (:func:`solve_bands`).
 """
 
 from __future__ import annotations
@@ -19,10 +29,20 @@ import torch
 from meshrecon_torch import BACKGROUND_DEPTH
 from meshrecon_torch.flow.pyramid import pad_reflect
 from meshrecon_torch.geometry.camera import invert_cameras
-from meshrecon_torch.utils.profiling import count, host_read, to_device
+from meshrecon_torch.kernels._build import Kernel, check_cuda
+from meshrecon_torch.utils.profiling import (count, host_read, host_values,
+                                             to_device)
 
 _GN_TAIL = 64
 _GN_MIN_SWEEPS = 6
+_PDF_SCALE = 0.159  # the pdf's constant factor: log_pdf = log(0.159) + ...
+
+_GN_SOURCE = "meshrecon_torch/csrc/triangulate.cu"
+_GN_REPLACES = "meshrecon/depth/triangulate.py:295 (XLA while_loop)"
+GN_SOBEL = Kernel("gn_sobel", "mr_gn_sobel", _GN_SOURCE, _GN_REPLACES)
+GN_WALK = Kernel("gn_walk", "mr_gn_walk", _GN_SOURCE, _GN_REPLACES)
+GN_EXIT = Kernel("gn_exit", "mr_gn_exit", _GN_SOURCE, _GN_REPLACES)
+GN_FINISH = Kernel("gn_finish", "mr_gn_finish", _GN_SOURCE, _GN_REPLACES)
 
 
 def sobel_gradient(image):
@@ -227,7 +247,7 @@ class GaussNewtonBand:
         det_ic = ic11 * ic22 - ic12 * ic12
         det_ic = torch.where(sv, det_ic.clamp(min=1e-30), 1.0)
         dev = z_final.device
-        log_pdf = (torch.log(to_device(0.159, dev, torch.float32))
+        log_pdf = (torch.log(to_device(_PDF_SCALE, dev, torch.float32))
                    + torch.log(det_ic).sum(dim=1) + 0.5 * exponent)
         pdf = torch.exp(log_pdf.clamp(-30.0, 30.0))
 
@@ -272,6 +292,194 @@ def gauss_newton(bands: list, gn_iters: int = 50) -> int:
     return sweeps
 
 
+def _flow_planes(flx, fly):
+    """(flx, fly, step): the planes as GN reads them, each element ``step``
+    floats after the one before: 2 for the two channels of one contiguous
+    (..., 2) flow tensor, which are then read in place, else 1."""
+    flx, fly = flx.to(torch.float32), fly.to(torch.float32)
+    dense, stride = [], 1
+    for size in reversed(flx.shape):
+        dense.insert(0, stride)
+        stride *= size
+    for step in (1, 2):
+        want = tuple(step * x for x in dense)
+        if (flx.stride() == want and fly.stride() == want
+                and fly.shape == flx.shape):
+            return flx, fly, step
+    return flx.contiguous(), fly.contiguous(), 1
+
+
+def gn_sobel(depth):
+    """GN_SOBEL: :func:`sobel_gradient` of a contiguous (B, h, W) float32
+    CUDA tensor, h and W at least 2; returns (gx, gy)."""
+    gx, gy = torch.empty_like(depth), torch.empty_like(depth)
+    check_cuda("gn_sobel", depth, gx, gy)
+    GN_SOBEL.launch(depth, gx, gy, *depth.shape)
+    return gx, gy
+
+
+class KernelBand:
+    """:class:`GaussNewtonBand` on CUDA tensors, the same arguments: the
+    inputs of the GN kernels (``csrc/triangulate.cu``), and the band's
+    share of :func:`solve_bands`: :meth:`walk`, then :meth:`finish`. The
+    camera inversion and products stay eager ((B, 4, 4) and (B, K, 4, 4)
+    tensors: torch's own bits)."""
+
+    def __init__(self, flx, fly, var_in, main_cams, side_cams, side_valid,
+                 depth, sampling: str = "exact", *, row0: int = 0,
+                 height=None, depth_row0: int = 0):
+        if sampling not in ("exact", "taylor"):
+            raise ValueError(f"unknown sampling mode {sampling}")
+        self.flx, self.fly, self.flow_step = _flow_planes(flx, fly)
+        self.var = var_in.to(torch.float32).contiguous()
+        self.depth = depth.to(torch.float32).contiguous()
+        self.side_valid = side_valid.to(torch.bool).contiguous()
+        self.b, self.k, self.rows, self.width = self.flx.shape
+        self.height = self.depth.shape[-2] if height is None else height
+        self.row0, self.depth_row0 = row0, depth_row0
+        if (self.fly.shape != self.flx.shape
+                or self.var.shape != self.flx.shape
+                or self.depth.dim() != 3
+                or self.depth.shape[::2] != (self.b, self.width)
+                or self.side_valid.shape != (self.b, self.k)
+                or main_cams.shape != (self.b, 4, 4)
+                or side_cams.shape != (self.b, self.k, 4, 4)):
+            raise ValueError("KernelBand: the inputs' shapes disagree")
+        if self.width < 2 or self.height < 2 or self.depth.shape[-2] < 2:
+            raise ValueError("GN needs an image and a depth window of at "
+                             "least 2x2 pixels")
+        self.exact = int(sampling == "exact")
+        # the status is read with the sweep count (solve_bands), not here
+        main_inv, self.inv_status = torch.linalg.inv_ex(
+            main_cams.to(torch.float32))
+        self.cm = (side_cams.to(torch.float32)
+                   @ main_inv[:, None]).contiguous()
+        self.main_inv = main_inv.contiguous()
+        check_cuda("KernelBand", self.depth, self.var, self.cm,
+                   self.main_inv)
+        self.gx, self.gy = gn_sobel(self.depth)
+        self.z = self.t = None
+        for t in (self.flx, self.fly, self.side_valid):
+            if t.device != self.depth.device:
+                raise ValueError(f"KernelBand: an input on {t.device}, "
+                                 f"the depth on {self.depth.device}")
+
+    def _geometry(self) -> tuple:
+        return (self.exact, self.b, self.k, self.rows, self.width,
+                self.height, self.row0, self.depth_row0,
+                self.depth.shape[-2], self.flow_step)
+
+    def _inputs(self) -> tuple:
+        return (self.flx, self.fly, self.var, self.depth, self.gx, self.gy,
+                self.cm, self.side_valid)
+
+    def walk(self, gn_iters: int) -> torch.Tensor:
+        """GN_WALK: every pixel to its own stop, up to ``gn_iters`` steps;
+        returns the (B, gn_iters + 1) int32 histogram of its step counts."""
+        dev = self.depth.device
+        shape = (self.b, self.rows, self.width)
+        self.z = torch.empty(shape, dtype=torch.float32, device=dev)
+        self.t = torch.empty(shape, dtype=torch.int32, device=dev)
+        hist = torch.zeros((self.b, gn_iters + 1), dtype=torch.int32,
+                           device=dev)
+        GN_WALK.launch(*self._inputs(), self.z, self.t, hist,
+                       *self._geometry(), gn_iters, 2.0 / self.width,
+                       2.0 / self.height, BACKGROUND_DEPTH)
+        return hist
+
+    def finish(self, stop: torch.Tensor) -> dict:
+        """GN_FINISH at each item's stop sweep ``stop`` (B,) int32: dict(
+        point4, pdf, valid)."""
+        dev = self.depth.device
+        shape = (self.b, self.rows, self.width)
+        point4 = torch.empty(shape + (4,), dtype=torch.float32, device=dev)
+        pdf = torch.empty(shape, dtype=torch.float32, device=dev)
+        valid = torch.empty(shape, dtype=torch.bool, device=dev)
+        GN_FINISH.launch(*self._inputs(), self.z, self.t, stop,
+                         self.main_inv, point4, pdf, valid,
+                         *self._geometry(), 2.0 / self.width,
+                         2.0 / self.height, BACKGROUND_DEPTH, _PDF_SCALE)
+        return {"point4": point4, "pdf": pdf, "valid": valid}
+
+
+def gn_exit(hist: torch.Tensor, inv_status: torch.Tensor):
+    """GN_EXIT on a (B, gn_iters + 1) int32 histogram of step counts and
+    the main cameras' (B,) inversion status: (stop (B,) int32, info (3,)
+    int64: the sweep count, the pixel-steps taken, the singular
+    cameras)."""
+    hist = hist.contiguous()
+    inv_status = inv_status.to(torch.int32).contiguous()
+    b = hist.shape[0]
+    stop = torch.empty(b, dtype=torch.int32, device=hist.device)
+    info = torch.empty(3, dtype=torch.int64, device=hist.device)
+    check_cuda("gn_exit", hist, inv_status, stop, dtype=torch.int32)
+    check_cuda("gn_exit", info, dtype=torch.int64)
+    GN_EXIT.launch(hist, inv_status, stop, info, b, hist.shape[1] - 1,
+                   _GN_TAIL, _GN_MIN_SWEEPS)
+    return stop, info
+
+
+def gn_exit_plain(hist) -> tuple:
+    """GN_EXIT's plain version, on a (B, gn_iters + 1) histogram of the
+    pixels' step counts (the sweep after which each went inactive, 0 if it
+    never started, ``gn_iters`` if it never stopped): (each item's stop
+    sweep, the batch's sweep count, the pixel-steps taken), as lists and
+    ints. :func:`gauss_newton`'s exit, found afterwards: an item's active
+    count after s sweeps is the number of its pixels with more than s
+    steps."""
+    gn_iters = hist.shape[1] - 1
+    stop = []
+    for h in hist.tolist():
+        active, s = sum(h[1:]), 0
+        while (s < gn_iters
+               and active > (0 if s < _GN_MIN_SWEEPS else _GN_TAIL)):
+            s += 1
+            active -= h[s]
+        stop.append(s)
+    steps = sum(c * min(s, t) for h, s in zip(hist.tolist(), stop)
+                for t, c in enumerate(h))
+    return stop, max(stop, default=0), steps
+
+
+def gauss_newton_band(flx, fly, var_in, main_cams, side_cams, side_valid,
+                      depth, sampling: str = "exact", **band):
+    """The band's triangulation: :class:`GaussNewtonBand` on the CPU,
+    :class:`KernelBand` on CUDA (the same arguments)."""
+    cls = KernelBand if depth.is_cuda else GaussNewtonBand
+    return cls(flx, fly, var_in, main_cams, side_cams, side_valid, depth,
+               sampling, **band)
+
+
+def solve_bands(bands: list, gn_iters: int = 50) -> list:
+    """Triangulate the bands of one batch of main frames (one band: the
+    whole frame) to the global exit: each band's dict(point4, pdf, valid,
+    gn_sweeps). On CUDA the bands' histograms are summed on the first
+    band's device in band order (exact integers), so every band of an item
+    stops at the unsharded sweep; the sweep count is read once, after
+    every GN_FINISH is queued, with the cameras' inversion status, and
+    counted (``gn_kernel``, ``gn_steps``, ``gn_sweeps``)."""
+    if not isinstance(bands[0], KernelBand):
+        sweeps = gauss_newton(bands, gn_iters)
+        return [band.result(sweeps) for band in bands]
+    hists = [band.walk(gn_iters) for band in bands]
+    dev0 = hists[0].device
+    hist = hists[0]
+    for h in hists[1:]:
+        hist = hist + h.to(dev0)
+    stop, info = gn_exit(hist, bands[0].inv_status)
+    outs = [band.finish(stop.to(band.depth.device)) for band in bands]
+    sweeps, steps, singular = host_values(info)
+    if singular:
+        raise torch.linalg.LinAlgError(
+            "invert_cameras: a camera matrix is singular")
+    count("gn_kernel")
+    count("gn_steps", steps)
+    count("gn_sweeps", sweeps)
+    for out in outs:
+        out["gn_sweeps"] = sweeps
+    return outs
+
+
 def triangulate_pixels_batched(flx, fly, var_in, main_cams, side_cams,
                                side_valid, depth, gn_iters: int = 50,
                                sampling: str = "exact"):
@@ -283,9 +491,9 @@ def triangulate_pixels_batched(flx, fly, var_in, main_cams, side_cams,
     Returns dict(point4 (B, H, W, 4), pdf (B, H, W), valid (B, H, W) bool,
     gn_sweeps int).
     """
-    band = GaussNewtonBand(flx, fly, var_in, main_cams, side_cams,
-                           side_valid, depth, sampling)
-    return band.result(gauss_newton([band], gn_iters))
+    band = gauss_newton_band(flx, fly, var_in, main_cams, side_cams,
+                             side_valid, depth, sampling)
+    return solve_bands([band], gn_iters)[0]
 
 
 def triangulate_pixels(flows, main_camera, side_cameras, side_valid, depth,

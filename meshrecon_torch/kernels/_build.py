@@ -81,6 +81,10 @@ _SIGNATURES = {
     "mr_roofline_copy": "PP" + "I" + "P",
     "mr_roofline_fma": "PP" + "II" + "P",
     "mr_roofline_tiny": "PP" + "II" + "P",
+    "mr_gn_sobel": "PPP" + "III" + "P",
+    "mr_gn_walk": "PPPPPPPP" + "PPP" + "I" * 11 + "FFF" + "P",
+    "mr_gn_exit": "PP" + "PP" + "IIII" + "P",
+    "mr_gn_finish": "PPPPPPPP" + "PPPP" + "PPP" + "I" * 10 + "FFFF" + "P",
 }
 
 

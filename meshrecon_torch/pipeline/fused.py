@@ -95,7 +95,8 @@ def fused_main_update_batched(soup, soup_valid, cam_mains, frames_main,
     "nearest" or "bilinear".
 
     Returns dict(point4, normals, pdf, valid, depth) with leading B, and
-    ``gn_sweeps`` (the Gauss-Newton sweep count, one host sync each).
+    ``gn_sweeps`` (the Gauss-Newton sweep count: on the CPU one host sync
+    a sweep, on CUDA one read a triangulation).
     """
     check_options(variance, variance_taps)
     dev = side_frames.device

@@ -48,8 +48,9 @@ The stages and their reach:
 - the variance's residual: reach 1 (the gradients);
 - triangulation: reach 1 (Sobel), or with exact sampling ``ceil(max |fly|)
   + 2``; the Gauss-Newton exit counts active pixels over the whole frame,
-  the bands' counts summed every sweep (``depth.triangulate.gauss_newton``)
-  so that every band of an item takes the unsharded sweeps;
+  the bands' counts summed (``depth.triangulate.solve_bands``: every sweep
+  on the CPU, the bands' step-count histograms once on CUDA) so that every
+  band of an item takes the unsharded sweeps;
 - normals: reach 10 (the 21x21 window).
 
 Each window is logged (:attr:`TileGroup.log`), and the bytes the exchanges
@@ -65,7 +66,7 @@ from dataclasses import dataclass
 import torch
 
 from meshrecon_torch.depth.normals import estimate_normals_batched
-from meshrecon_torch.depth.triangulate import GaussNewtonBand, gauss_newton
+from meshrecon_torch.depth.triangulate import gauss_newton_band, solve_bands
 from meshrecon_torch.flow import farneback as fb
 from meshrecon_torch.flow.jacobi import hs_launch, hs_launches, hs_level_fused
 from meshrecon_torch.flow.pyramid import pyr_down, pyr_up
@@ -546,16 +547,13 @@ def triangulate(g: TileGroup, flx: Plane, fly: Plane, var: Plane,
         g.log.append(dict(stage="triangulate", band=j, lo=lo, hi=hi,
                           reach=reach, w0=w0, w1=w1, height=depth.height))
         with _on(dev):
-            bands.append(GaussNewtonBand(
+            bands.append(gauss_newton_band(
                 flx.parts[j], fly.parts[j], var.parts[j], main_cams[j],
                 side_cams[j], side_valid[j], g.rows(depth, w0, w1, j),
                 sampling, row0=lo, height=depth.height, depth_row0=w0))
-    sweeps = gauss_newton(bands, gn_iters)
-    outs = []
-    for dev, band in zip(g.devices, bands):
-        with _on(dev):
-            res = band.result(sweeps)
-        outs.append((res["point4"], res["pdf"], res["valid"]))
+    res = solve_bands(bands, gn_iters)
+    sweeps = res[0]["gn_sweeps"]
+    outs = [(r["point4"], r["pdf"], r["valid"]) for r in res]
     point4 = Plane([o[0] for o in outs], flx.starts, flx.height, -3)
     pdf, valid = (Plane([o[i] for o in outs], flx.starts, flx.height)
                   for i in (1, 2))

@@ -20,8 +20,10 @@ would count it as device work.
 
 Counters: ``host_syncs`` and ``sync_wait`` (host seconds blocked) count
 the calls of the dense update that wait for the device, each made through
-:func:`host_read` or :func:`to_device`; ``gn_sweeps`` counts Gauss-Newton
-sweeps.
+:func:`host_read`, :func:`host_values` or :func:`to_device`;
+``gn_sweeps`` counts Gauss-Newton sweeps, and on CUDA ``gn_kernel`` the
+triangulations that ran the GN kernels and ``gn_steps`` the pixel-steps
+they took.
 """
 
 from __future__ import annotations
@@ -360,6 +362,12 @@ def host_read(value):
     """``value.item()``, the dense update's one way to read a device
     value into Python: a counted host sync."""
     return _blocked(value.item)
+
+
+def host_values(value) -> list:
+    """``value.tolist()``: several device values read at once, one
+    counted host sync."""
+    return _blocked(value.tolist)
 
 
 def to_device(value, device, dtype=None):

@@ -86,6 +86,81 @@ def test_gn_global_exit_matches_vmapped_while():
                                rtol=1e-4, atol=1e-6)
 
 
+def _step_counts(band, gn_iters):
+    """Each pixel's steps under the eager step with no exit: the sweeps it
+    began active (0 if never, ``gn_iters`` if it never stopped), and
+    whether it is still active after ``gn_iters``."""
+    z, active = band.z, band.active
+    t = torch.zeros(active.shape, dtype=torch.int64)
+    for _ in range(gn_iters):
+        t += active
+        z, active = band.step(z, active)
+    return t, active
+
+
+@pytest.mark.parametrize("n_bands", [1, 2])
+@pytest.mark.parametrize("sampling", ["taylor", "exact"])
+def test_gn_exit_from_step_counts_matches_gauss_newton(sampling, n_bands):
+    """The exit the GN kernels find afterwards: each pixel's step count
+    from the eager step, per-item histograms summed over the bands, each
+    item's stop sweep from them (``gn_exit_plain``), then min(stop, steps)
+    steps replayed give ``gauss_newton``'s z, active and sweep count bit
+    for bit. Item 0 stops after the 6-sweep minimum (at most 64 pixels
+    still moving), item 1 at the 50-sweep cap (flows x60: over 64 pixels
+    cycle); two bands split the frame's rows."""
+    items = [_tri_problem(seed=2), _tri_problem(seed=1)]
+    flx, fly = (_t(np.stack([it[0][c] * f for it, f in
+                             zip(items, (1.0, 60.0))])) for c in (0, 1))
+    var, mains, sides, sv, depth = (
+        _t(np.stack([it[0][2] for it in items])),
+        *(_t(np.stack([it[i] for it in items])) for i in (1, 2, 3, 4)))
+    h = depth.shape[-2]
+    cuts = [0, h // 2, h] if n_bands == 2 else [0, h]
+
+    def bands():
+        return [tt.GaussNewtonBand(flx[..., lo:hi, :], fly[..., lo:hi, :],
+                                   var[..., lo:hi, :], mains, sides, sv,
+                                   depth, sampling, row0=lo, height=h)
+                for lo, hi in zip(cuts, cuts[1:])]
+
+    ref = bands()
+    sweeps = tt.gauss_newton(ref, 50)
+    mine = bands()
+    counts = [_step_counts(band, 50) for band in mine]
+    hist = sum(torch.stack([torch.bincount(t[i].reshape(-1), minlength=51)
+                            for i in range(2)]) for t, _ in counts)
+    stop, n_sweeps, steps = tt.gn_exit_plain(hist)
+    assert stop == [6, 50] and n_sweeps == sweeps == 50
+    s = torch.tensor(stop)[:, None, None]
+    for band, (t, alive), r in zip(mine, counts, ref):
+        n = torch.minimum(t, s)
+        z = band.z
+        for i in range(50):
+            z = band.step(z, i < n)[0]
+        active = (t > s) | ((t == 50) & (s == 50) & alive)
+        torch.testing.assert_close(z, r.z, rtol=0, atol=0, equal_nan=True)
+        assert torch.equal(active, r.active)
+    assert steps == sum(int(torch.minimum(t, s).sum()) for t, _ in counts)
+
+
+def test_flow_planes_read_the_two_channels_in_place():
+    """The GN kernels read flx, fly from one contiguous (..., 2) flow
+    tensor at element step 2, from contiguous planes at step 1, and from
+    any other layout through a contiguous copy."""
+    flows = torch.arange(2 * 3 * 4 * 5 * 2, dtype=torch.float32).reshape(
+        2, 3, 4, 5, 2)
+    flx, fly, step = tt._flow_planes(flows[..., 0], flows[..., 1])
+    assert step == 2 and flx.data_ptr() == flows.data_ptr()
+    assert fly.data_ptr() == flows.data_ptr() + 4
+    planes = flows.movedim(-1, 0).contiguous()
+    flx, fly, step = tt._flow_planes(planes[0], planes[1])
+    assert step == 1 and flx.data_ptr() == planes.data_ptr()
+    flx, fly, step = tt._flow_planes(planes[0].transpose(-1, -2),
+                                     planes[1].transpose(-1, -2))
+    assert step == 1 and flx.is_contiguous() and fly.is_contiguous()
+    assert torch.equal(flx, planes[0].transpose(-1, -2))
+
+
 def test_sobel_matches_jax():
     rng = np.random.default_rng(3)
     img = rng.uniform(-1, 1, (20, 30)).astype(np.float32)

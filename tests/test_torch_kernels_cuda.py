@@ -30,7 +30,10 @@ bitwise against the whole frame's rows and against their plain versions
 (K2's bilinear 1e-4), K3's and K3b's bands bitwise against the whole
 frame's rows (K3 also against ``bilinear_warp``'s band), and the tile-
 sharded update on one card's ``[cuda:0] * n`` bitwise against the
-unsharded update.
+unsharded update. GN (Gauss-Newton triangulation) bitwise against the
+eager sweeps on the card (``GaussNewtonBand``, ``gauss_newton``), whole
+frames and bands, and GN_EXIT equal to its plain version; the card path
+never runs the eager loop and reads the host once.
 """
 
 import ctypes
@@ -1181,3 +1184,243 @@ def test_fused_breakdown_on_gpu(dev):
     cost = fb.main(["96", "128", "2", "1", "2", "--cost-only"])
     assert cost["stages"][0]["launches"] == {
         binned.K1.name: 1, binned.SETUP.name: 1, binned.BIN.name: 1}
+
+
+# -- GN: Gauss-Newton triangulation (csrc/triangulate.cu) ----------------
+
+def _gn_item(seed, k, h=48, w=64, scale=1.0):
+    """One main frame's triangulation inputs as tests/test_torch_depth.py's
+    ``_tri_problem`` makes them (numpy only): a plane's depth with a
+    background band, flows of smoothed noise x6 x ``scale``, variances in
+    [0.5, 50)."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(seed)
+    main = problems.make_camera(eye=(0, 0, 0))
+    sides = np.stack([problems.make_camera(eye=(1.0, 0.3 * j, 0))
+                      for j in range(k)])
+    flx = gaussian_filter(rng.normal(size=(k, h, w)), (0, 4, 4)) * 6.0
+    fly = gaussian_filter(rng.normal(size=(k, h, w)), (0, 4, 4)) * 6.0
+    var = rng.uniform(0.5, 50.0, size=(k, h, w))
+    depth = problems.plane_depth(main, -5.0, h, w)
+    depth[:, :6] = 1.0
+    return (flx * scale, fly * scale, var, main, sides, np.ones(k, bool),
+            depth)
+
+
+def _gn_batch(items, dev, n_valid=None):
+    """The items stacked as CUDA tensors (flx, fly, var, mains, sides,
+    side_valid, depth); ``n_valid``: each item's real sides, the others
+    padded as the update pads them (identity cameras, invalid)."""
+    out = [np.stack([it[i] for it in items]) for i in range(7)]
+    if n_valid is not None:
+        for b, n in enumerate(n_valid):
+            out[4][b, n:] = np.eye(4)
+            out[5][b, n:] = False
+    return tuple(torch.from_numpy(np.ascontiguousarray(
+        a, dtype=bool if i == 5 else np.float32)).to(dev)
+        for i, a in enumerate(out))
+
+
+def _gn_eager(bands, gn_iters=50):
+    """The eager loop on the card: each band's result dict."""
+    from meshrecon_torch.depth import triangulate
+
+    sweeps = triangulate.gauss_newton(bands, gn_iters)
+    return [band.result(sweeps) for band in bands]
+
+
+def _gn_equal(out, ref):
+    """Every output bit for bit (NaN where the eager loop has NaN)."""
+    assert out["gn_sweeps"] == ref["gn_sweeps"]
+    for key in ("point4", "pdf", "valid"):
+        torch.testing.assert_close(out[key], ref[key], rtol=0, atol=0,
+                                   equal_nan=True, msg=key)
+
+
+_GN_CASES = {
+    # B=4, K=8 with padded sides (the update's bucket)
+    "b4k8": (lambda: [_gn_item(s, 8, 96, 128) for s in range(4)],
+             [6, 8, 1, 3]),
+    "k4": (lambda: [_gn_item(s, 4, 96, 128) for s in (4, 5)], None),
+    # a bucket above 8: each side's terms derived again at every step
+    "k16": (lambda: [_gn_item(s, 16, 96, 128) for s in (6, 7)], [16, 11]),
+    # item 0 stops after the 6-sweep minimum, item 1 at the cap
+    "exit": (lambda: [_gn_item(2, 2), _gn_item(1, 2, scale=60.0)], None),
+}
+
+
+@pytest.mark.parametrize("sampling", ["taylor", "exact"])
+@pytest.mark.parametrize("case", sorted(_GN_CASES))
+def test_gn_kernels_match_the_eager_loop(dev, case, sampling):
+    """GN_SOBEL, GN_WALK, GN_EXIT and GN_FINISH against the eager sweeps on
+    the card, bit for bit: every operation in the eager order, and the
+    sums over sides in torch's CUDA reduction order; the padded sides'
+    zero terms skipped."""
+    from meshrecon_torch.depth import triangulate
+
+    make, n_valid = _GN_CASES[case]
+    args = _gn_batch(make(), dev, n_valid)
+    kernels = (triangulate.GN_SOBEL, triangulate.GN_WALK,
+               triangulate.GN_EXIT, triangulate.GN_FINISH)
+    before = [k.launches for k in kernels]
+    out = triangulate.triangulate_pixels_batched(*args, sampling=sampling)
+    assert [k.launches for k in kernels] == [n + 1 for n in before]
+    (ref,) = _gn_eager([triangulate.GaussNewtonBand(*args, sampling)])
+    _gn_equal(out, ref)
+    assert out["valid"].float().mean() > 0.5
+    if case == "exit":
+        band = triangulate.KernelBand(*args, sampling)
+        stop, info = triangulate.gn_exit(band.walk(50), band.inv_status)
+        assert stop.tolist() == [6, 50] and info.tolist()[0] == 50
+
+
+@pytest.mark.parametrize("sampling", ["taylor", "exact"])
+def test_gn_bands_match_the_whole_frame(dev, sampling):
+    """The tile axis's form: three bands of rows, each on its depth window
+    (reach 1, or the exact mode's ceil(max |fly|) + 2), the bands' step
+    histograms summed for the exit: every band equals the whole frame's
+    rows bit for bit, and the eager band form; both items keep their
+    unsharded stop (6 and the cap)."""
+    from meshrecon_torch.depth import triangulate
+
+    args = _gn_batch([_gn_item(2, 2), _gn_item(1, 2, scale=60.0)], dev)
+    flx, fly, var, mains, sides, sv, depth = args
+    h = depth.shape[-2]
+    reach = (min(math.ceil(float(fly.abs().max())) + 2, h)
+             if sampling == "exact" else 1)
+    whole = triangulate.triangulate_pixels_batched(*args, sampling=sampling)
+    cuts = [0, 13, 30, h]
+    for cls in (triangulate.KernelBand, triangulate.GaussNewtonBand):
+        bands = []
+        for lo, hi in zip(cuts, cuts[1:]):
+            w0, w1 = max(lo - reach, 0), min(hi + reach, h)
+            bands.append(cls(flx[..., lo:hi, :], fly[..., lo:hi, :],
+                             var[..., lo:hi, :], mains, sides, sv,
+                             depth[:, w0:w1], sampling, row0=lo, height=h,
+                             depth_row0=w0))
+        outs = (triangulate.solve_bands(bands) if cls is
+                triangulate.KernelBand else _gn_eager(bands))
+        for out, lo, hi in zip(outs, cuts, cuts[1:]):
+            rows = {"gn_sweeps": whole["gn_sweeps"]}
+            rows.update({k: whole[k][:, lo:hi] for k in
+                         ("point4", "pdf", "valid")})
+            _gn_equal(out, rows)
+    assert whole["gn_sweeps"] == 50
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 53), (2, 2, 2), (4, 480, 640)])
+def test_gn_sobel_matches_sobel_gradient(dev, shape):
+    """GN_SOBEL bitwise against the eager ``sobel_gradient`` (reflect-101
+    at the window's edges)."""
+    from meshrecon_torch.depth import triangulate
+
+    depth = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, shape).astype(np.float32)).to(dev)
+    for out, ref in zip(triangulate.gn_sobel(depth),
+                        triangulate.sobel_gradient(depth)):
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("gn_iters", [0, 1, 6, 50])
+def test_gn_exit_matches_its_plain_version(dev, gn_iters):
+    """GN_EXIT against ``gn_exit_plain`` on step-count histograms: items
+    with no pixel, below and above the tail, past the cap; and the
+    singular cameras counted."""
+    from meshrecon_torch.depth import triangulate
+
+    rng = np.random.default_rng(gn_iters)
+    hist = rng.integers(0, 40, size=(6, gn_iters + 1)).astype(np.int32)
+    hist[0] = 0
+    hist[1, 1:] = 0
+    hist[2, -1] = 100_000
+    hist[3, :] = 1
+    hist[:, 0] = 7
+    status = torch.tensor([0, 1, 0, 2, 0, 0], dtype=torch.int32, device=dev)
+    stop, info = triangulate.gn_exit(torch.from_numpy(hist).to(dev), status)
+    plain = triangulate.gn_exit_plain(torch.from_numpy(hist))
+    assert stop.tolist() == plain[0]
+    assert info.tolist() == [plain[1], plain[2], 2]
+
+
+def test_gn_refuses_what_it_does_not_take(dev):
+    """KernelBand raises on inputs whose shapes disagree, on another
+    device, on an image under 2x2 pixels; GN_WALK refuses a depth window
+    that does not hold the band's rows, launching nothing."""
+    from meshrecon_torch.depth import triangulate
+
+    args = list(_gn_batch([_gn_item(s, 2) for s in (0, 1)], dev))
+    bad = [(0, args[0][:, :1]), (2, args[2][..., :-1]), (5, args[5][:1]),
+           (6, args[6][:1]), (0, args[0].cpu())]
+    for i, t in bad:
+        with pytest.raises(ValueError):
+            triangulate.KernelBand(*args[:i], t, *args[i + 1:])
+    with pytest.raises(ValueError):
+        triangulate.KernelBand(*(a[..., :1, :] for a in args[:3]),
+                               *args[3:6], args[6][:, :1])
+    band = triangulate.KernelBand(*args[:6], args[6][:, 10:], row0=0,
+                                  depth_row0=10, height=48)
+    before = triangulate.GN_WALK.launches
+    with pytest.raises(RuntimeError, match="gn_walk"):
+        band.walk(50)
+    assert triangulate.GN_WALK.launches == before
+
+
+def test_gn_card_path_never_takes_the_eager_loop(dev, monkeypatch):
+    """On the card the update and the reconstruction's single-frame
+    triangulation run GN alone: with the eager sweep, result and loop
+    patched to raise, they still run, one GN triangulation a call."""
+    from meshrecon_torch.depth import triangulate
+
+    def eager(*args, **kwargs):
+        raise AssertionError("the eager Gauss-Newton loop ran on the card")
+
+    for name in ("step", "result", "residuals"):
+        monkeypatch.setattr(triangulate.GaussNewtonBand, name, eager)
+    monkeypatch.setattr(triangulate, "gauss_newton", eager)
+    before = triangulate.GN_FINISH.launches
+    args = state.from_numpy(problems.fused_problem(2, 3, 48, 64, seed=3),
+                            dev)
+    out = fused_main_update_batched(*args, 48, 64)
+    assert out["gn_sweeps"] >= 1 and out["valid"].any()
+    flx, fly, var, main, sides, sv, depth = _gn_item(3, 2)
+    flows = torch.from_numpy(np.stack([flx, fly, var], -1).astype(
+        np.float32)).to(dev)
+    one = triangulate.triangulate_pixels(
+        flows, *(torch.from_numpy(a).to(dev) for a in (
+            main.astype(np.float32), sides.astype(np.float32), sv,
+            depth.astype(np.float32))))
+    assert one["valid"].any()
+    assert triangulate.GN_FINISH.launches == before + 2
+
+
+def test_gn_triangulation_makes_one_host_sync(dev):
+    """A triangulation on the card synchronizes once: the sweep count,
+    the steps and the camera inversion's status read together, counted
+    (``host_syncs``, ``gn_kernel``, ``gn_steps``, ``gn_sweeps``) and the
+    only synchronizing call the card reports."""
+    import warnings
+
+    from meshrecon_torch.depth import triangulate
+    from meshrecon_torch.utils.profiling import StageTimer
+
+    args = _gn_batch([_gn_item(s, 8, 96, 128) for s in range(4)], dev,
+                     [6, 8, 1, 3])
+    triangulate.triangulate_pixels_batched(*args, sampling="taylor")
+    torch.cuda.synchronize()
+    t = StageTimer()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with t.stage("tri"):
+                out = triangulate.triangulate_pixels_batched(
+                    *args, sampling="taylor")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [c for c in caught
+             if "called a synchronizing CUDA operation" in str(c.message)]
+    assert len(syncs) == t.counters["host_syncs"] == 1
+    assert t.counters["gn_kernel"] == 1
+    assert t.counters["gn_sweeps"] == out["gn_sweeps"] >= 6
+    assert 0 < t.counters["gn_steps"] <= out["gn_sweeps"] * 4 * 96 * 128
