@@ -319,14 +319,14 @@ def fused_sweep_update_batched(soup, soup_valid, cam_mains, frames_main,
         side_valid = side_valid.to(torch.bool)
         b, k = side_frames.shape[:2]
 
-        with span("depth0", dev):
+        with span("sweep_render", dev):
             all_cams = torch.cat([cam_mains[:, None], side_cams], dim=1)
             all_depths = render_depth_binned(
                 all_cams.reshape(b * (k + 1), 4, 4), soup, soup_valid,
                 height, width).reshape(b, k + 1, height, width)
             depth0 = all_depths[:, 0]
 
-        with span("scan", dev):
+        with span("sweep_vote", dev):
             # visibility of the current surface estimate: the sweep's vote
             # weights
             _, masks = projected_image_batched(
@@ -368,7 +368,7 @@ def fused_sweep_update_batched(soup, soup_valid, cam_mains, frames_main,
                 zlo, zhi, num_depths=num_depths,
                 side_weight=masks2.to(torch.float32))
 
-        with span("all", dev):
+        with span("sweep_finish", dev):
             valid = out["valid"] & dvalid & any_valid[:, None, None]
             pts4 = backproject(out["depth"])
             pdf = 1.0 / (1.0 + out["cost"])

@@ -180,10 +180,13 @@ def test_plane_sweep_opens_a_plane_span_a_depth():
     t = StageTimer()
     with t.stage("call"):
         fused_sweep_update_batched(*args, H, W, num_depths=5)
-    assert {n: t.counts[n] for n in ("sweep_update", "depth0", "scan",
-                                     "sweep", "plane", "all")} == {
-        "sweep_update": 1, "depth0": 1, "scan": 1, "sweep": 1, "plane": 5,
-        "all": 1}
+    assert {n: t.counts[n] for n in ("sweep_update", "sweep_render",
+                                     "sweep_vote", "sweep", "plane",
+                                     "sweep_finish")} == {
+        "sweep_update": 1, "sweep_render": 1, "sweep_vote": 1, "sweep": 1,
+        "plane": 5, "sweep_finish": 1}
+    # the flow update's children are its own
+    assert not set(FLOW_SPANS[1:]) & set(t.counts)
 
 
 def test_span_clock_is_the_profilers(recorder):
