@@ -144,7 +144,15 @@ against this tree's in the same alternating rounds, and must equal them
    ``sobel_gradient``, GN_WALK's z against the eager z, GN_EXIT against
    ``gn_exit_plain``, GN_FINISH against ``result``), bound 0, with its ms,
    the eager share's ms and its bound (the walk's operations from the
-   pixel-steps it took).
+   pixel-steps it took). Then the sweep phase (``sweep_phase``) at c4's
+   shape (1x32x1080x1920, 64 planes) and on the inputs of the default
+   reconstruction's largest iteration-1 sweep (B=4, K=8, vote weights,
+   padded slots): the sweep on the card (K3c and SWEEP_PROJ, SWEEP_COST,
+   SWEEP_BEST a plane) bit for bit against the eager planes on the same
+   card inputs, both timed, then each SWEEP kernel at the middle plane
+   against its plain version (``SweepWindow.fields``, ``sums``,
+   ``take_plane``), bound 0, with its ms, the plain version's and its
+   bytes bound, and a whole plane's ms.
 9. The video entry points, three phases, each with its wall seconds:
    ``video``: a 640x480 MJPG (koule-tr's 31 frames) whose B, G and R
    planes are the synthetic sphere frames of seeds 3, 4 and 5 made on
@@ -2225,6 +2233,199 @@ def gn_phase(torch, dev, res, captured):
                 work=_gn_work("finish", args, hist, stop, exact))
 
 
+# The plane sweep's float32 operations a plane (depth/plane_sweep.py,
+# counted from the eager ops, a division counted as one): SWEEP_PROJ's a
+# pixel of a valid side slot (three camera rows, the w guard, two
+# divisions, the frame test) and its coordinates where the mask is set;
+# SWEEP_COST's a side pixel whose mask is set and its combine a main pixel;
+# SWEEP_BEST's a main pixel (nine taps of the cost, the box sum, the update)
+SWEEP_PROJ_OPS, SWEEP_COORD_OPS = 26, 6
+SWEEP_COST_OPS, SWEEP_COMBINE_OPS = 5, 6
+SWEEP_BEST_OPS = 30
+
+
+def _keep_largest_sweep(store):
+    """``make`` for :func:`_wrap`: the sweep whose side window is the
+    largest is kept in ``store`` (its inputs, as the update hands them
+    over)."""
+
+    def make(original):
+        def call(*args, **kwargs):
+            if not store or args[1].numel() > store["args"][1].numel():
+                store["args"] = args
+                store["kwargs"] = kwargs
+            return original(*args, **kwargs)
+        return call
+
+    return make
+
+
+def _sweep_work(kind, win, n_ok):
+    """(bytes, float32 operations) of one SWEEP kernel on a plane of the
+    window ``win`` whose K3c mask has ``n_ok`` pixels set: each input read
+    once, each output written once, a padded slot's pixels only their mask
+    byte, a side pixel outside its frame nothing more."""
+    b, k, h, w = win.fs.shape
+    px = h * w
+    kv = int(win.side_valid.sum())  # valid side slots
+    if kind == "proj":
+        return (b * k * px + 8 * n_ok,
+                kv * px * SWEEP_PROJ_OPS + n_ok * SWEEP_COORD_OPS)
+    if kind == "cost":
+        per_ok = 8 if win.swt is not None else 4  # the sample (and weight)
+        return (kv * px + per_ok * n_ok + 12 * b * px,
+                n_ok * SWEEP_COST_OPS + b * px * SWEEP_COMBINE_OPS)
+    # best: num and den read, six float planes and pending read and
+    # written
+    return (b * px * (8 + 2 * 25), b * px * SWEEP_BEST_OPS)
+
+
+def sweep_phase(torch, dev, res, captured):
+    """The plane sweep's kernels (csrc/sweep.cu) at c4's shape (1x32x
+    1080x1920, ``baseline_configs``' window, 64 planes) and at the default
+    reconstruction's largest iteration-1 sweep (B=4, K=8 with padded slots
+    and vote weights, 480x640, its own inputs): the sweep on the card
+    (SWEEP_PROJ, K3c, SWEEP_COST, SWEEP_BEST a plane) bit for bit against
+    the eager planes on the same card inputs (``SweepWindow`` and
+    ``take_plane``), both timed; then at the middle plane each kernel
+    against its plain version (``fields``, ``sums``, ``take_plane`` from
+    the eager state of the planes before), bound 0, with its ms, the
+    plain version's ms and its bytes bound, and the plane's four launches
+    together."""
+    from meshrecon_torch.depth import plane_sweep as ps
+    from meshrecon_torch.flow.tile_warp import tile_warp_sample_batched
+    from meshrecon_torch.tools import baseline_configs
+
+    t_phase = time.perf_counter()
+    if "args" not in captured:
+        raise AssertionError("sweep: the default reconstruction swept "
+                             "nothing")
+    h, w, k, d = C4["h"], C4["w"], C4["k"], C4["d"]
+    fm, fs, cam, cams, sv = (torch.from_numpy(np.ascontiguousarray(a)).to(
+        dev) for a in baseline_configs.window(h, w, k))
+    c4 = ((fm[None], fs[None], cam[None], cams[None], sv[None],
+           torch.tensor([baseline_configs.Z_MIN], device=dev),
+           torch.tensor([baseline_configs.Z_MAX], device=dev)),
+          dict(num_depths=d))
+    for args, kwargs in (c4, (captured["args"], captured["kwargs"])):
+        fm, fs, cm, cs, sv, z0, z1 = args[:7]
+        depths = kwargs.get("num_depths", 64)
+        swt = kwargs.get("side_weight")
+        b, k, h, w = fs.shape
+        label = (f"{b}x{k}x{h}x{w}, valid sides {sv.sum(1).tolist()}, "
+                 f"{'weighted' if swt is not None else 'unweighted'}")
+        z_min, z_max, zs = ps.sweep_planes(z0, z1, depths, dev)
+
+        def card():
+            return ps.plane_sweep_depth_batched(fm, fs, cm, cs, sv, z0, z1,
+                                                depths, side_weight=swt)
+
+        def eager():
+            return ps.sweep_windows([ps.SweepWindow(
+                fm, fs, cm, cs, sv, zs, swt)], z_min, z_max, depths)
+
+        out, ref = card(), eager()
+        torch.cuda.synchronize()
+        errs = [_bits_err(torch, out[key], ref[key])
+                for key in ("depth", "cost")]
+        mismatch = int((out["valid"] != ref["valid"]).sum())
+        if mismatch or max(errs):
+            raise AssertionError(f"sweep [{label}]: depth / cost errors "
+                                 f"{errs}, valid mismatch {mismatch}")
+        card_ms = _cuda_ms(torch, card, 3)
+        eager_ms = _cuda_ms(torch, eager, 1)
+        print(f"sweep [{label}]: bitwise the eager planes ({depths} planes, "
+              f"valid share {float(out['valid'].float().mean()):.4f}); "
+              f"sweep {card_ms:.3f} ms, eager {eager_ms:.3f} ms")
+        del out, ref
+
+        # each kernel at the middle plane, against its plain version
+        mid = depths // 2
+        win = ps.KernelWindow(fm, fs, cm, cs, sv, zs, swt)
+        plain = ps.SweepWindow(fm, fs, cm, cs, sv, zs, swt)
+        b_sv = win.side_valid[:, :, None, None]
+
+        def proj():
+            ps.SWEEP_PROJ.launch(win.cm, win.zs, win.side_valid, win.cols,
+                                 win.rows, win.ok, win.scol, win.srow, mid,
+                                 b, k, h, w)
+
+        proj()
+        ok, scol, srow = plain.fields(mid)
+        torch.cuda.synchronize()
+        n_ok = int(win.ok.sum())
+        err = 0.0 if torch.equal(win.ok, ok & b_sv) else float("inf")
+        err = max(err, _bits_err(torch, torch.where(win.ok, win.scol, 0.0),
+                                 torch.where(win.ok, scol, 0.0)),
+                  _bits_err(torch, torch.where(win.ok, win.srow, 0.0),
+                            torch.where(win.ok, srow, 0.0)))
+        print(f"sweep [{label}]: plane {mid}, K3c's mask set on "
+              f"{n_ok / win.ok.numel():.4f} of the side pixels, "
+              f"{float(ok.float().mean()):.4f} before the padded slots' "
+              "are cleared")
+        res.add(ps.SWEEP_PROJ, label, err, 0.0, _cuda_ms(torch, proj, 20),
+                _cuda_ms(torch, lambda: plain.fields(mid), 5),
+                work=_sweep_work("proj", win, n_ok))
+        samp = tile_warp_sample_batched(plain.fs, scol.contiguous(),
+                                        srow.contiguous(), ok.contiguous())
+        want = plain.sums(samp, ok)
+        tile_warp_sample_batched(win.fs, win.scol, win.srow, win.ok,
+                                 out=win.samp)
+
+        def cost():
+            ps.SWEEP_COST.launch(win.samp, win.ok, win.side_valid, win.fm,
+                                 win.swt, win.num, win.den, b, k, h, w)
+
+        cost()
+        torch.cuda.synchronize()
+        err = max(_bits_err(torch, win.num, want[0]),
+                  _bits_err(torch, win.den, want[1]))
+        res.add(ps.SWEEP_COST, label, err, 0.0, _cuda_ms(torch, cost, 20),
+                _cuda_ms(torch, lambda: plain.sums(samp, ok), 5),
+                work=_sweep_work("cost", win, n_ok))
+        del samp
+
+        # the eager state after the planes before the middle one
+        big = torch.full((b, h, w), 1e30, device=dev)
+        best = {"best_c": big, "best_prev": big, "best_next": big,
+                "last_c": big, "best_z": z_max[:, None, None].expand(
+                    b, h, w),
+                "support": torch.zeros((b, h, w), device=dev),
+                "pending": torch.zeros((b, h, w), dtype=torch.bool,
+                                       device=dev)}
+        for j in range(mid):
+            best = ps.take_plane(best, *plain.evidence(j), zs[j])
+        keys = ("best_c", "best_prev", "best_next", "last_c", "best_z",
+                "support")
+        state0 = torch.stack([best[key] for key in keys]).contiguous()
+        state = state0.clone()
+        pending = best["pending"].clone()
+        num, den = plain.evidence(mid)
+        after = ps.take_plane(best, num, den, zs[mid])
+        ps.sweep_best(num, den, zs, mid, state, pending)
+        torch.cuda.synchronize()
+        err = max(_bits_err(torch, state[i], after[key])
+                  for i, key in enumerate(keys))
+        if not torch.equal(pending, after["pending"]):
+            err = float("inf")
+        res.add(ps.SWEEP_BEST, label, err, 0.0, _cuda_ms(
+            torch, lambda: ps.sweep_best(num, den, zs, mid, state, pending),
+            20), _cuda_ms(torch, lambda: ps.take_plane(best, num, den,
+                                                       zs[mid]), 5),
+            work=_sweep_work("best", win, n_ok))
+
+        def plane():
+            ps.sweep_best(*win.evidence(mid), zs, mid, state, pending)
+
+        plane_ms = _cuda_ms(torch, plane, 20)
+        plane_eager = _cuda_ms(torch, lambda: ps.take_plane(
+            best, *plain.evidence(mid), zs[mid]), 5)
+        print(f"sweep [{label}]: a plane (SWEEP_PROJ, K3c, SWEEP_COST, "
+              f"SWEEP_BEST) {plane_ms:.4f} ms, eager {plane_eager:.4f} ms")
+        del win, plain, best, state0, state, num, den, after
+    print(f"phase sweep: {time.perf_counter() - t_phase:.1f} s")
+
+
 def _swept_ndc(out, mains):
     """NDC depth of the swept points: point4 projected by the main camera."""
     p = np.einsum("bij,bhwj->bhwi", mains.astype(np.float64),
@@ -3016,7 +3217,8 @@ def studies_phase(torch, path):
 
 def config4_phase(torch, dev, res):
     """baseline_configs c4 at 1080p, 32 sides, 64 planes: one solve's K3c
-    launches (one a plane), the depth finite where valid, the tool's ms,
+    and SWEEP launches (one each a plane), the depth finite where valid,
+    the tool's ms,
     Mpix/s and peak memory; then K3c alone at the middle plane's inputs
     (1x32x1080x1920) against its plain version, its bound and
     ``grid_sample``."""
@@ -3042,9 +3244,14 @@ def config4_phase(torch, dev, res):
     seen = []
 
     def recorded(inner):
-        def sample(*a):
-            seen.append(a)
-            return inner(*a)
+        def sample(*a, **kw):
+            if len(seen) == d // 2:  # the window's buffers: copied
+                srcs, scol, srow, ok = a
+                seen.append((srcs, torch.where(ok, scol, 0.0),
+                             torch.where(ok, srow, 0.0), ok.clone()))
+            else:
+                seen.append(None)
+            return inner(*a, **kw)
         return sample
 
     _reset(kernels)
@@ -3052,11 +3259,13 @@ def config4_phase(torch, dev, res):
         plane_sweep.plane_sweep_depth(*args, baseline_configs.Z_MIN,
                                       baseline_configs.Z_MAX, num_depths=d)
     torch.cuda.synchronize()
-    launches = tile_warp.K3C.launches
-    print(f"config4: one solve launched K3c {launches} times ({d} planes)")
-    if launches != d:
-        raise AssertionError(f"config4: K3c launched {launches} times, not "
-                             f"once a plane ({d})")
+    launches = {kern.name: kern.launches for kern in (
+        tile_warp.K3C, plane_sweep.SWEEP_PROJ, plane_sweep.SWEEP_COST,
+        plane_sweep.SWEEP_BEST)}
+    print(f"config4: one solve's launches {launches} ({d} planes)")
+    if set(launches.values()) != {d}:
+        raise AssertionError(f"config4: launches {launches}, not once a "
+                             f"plane ({d})")
     srcs, scol, srow, ok = seen[d // 2]
     seen.clear()
     px = srcs.numel()
@@ -3417,7 +3626,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from meshrecon_torch import problems, state
-    from meshrecon_torch.depth import triangulate
+    from meshrecon_torch.depth import plane_sweep, triangulate
     from meshrecon_torch.flow import jacobi, tile_warp
     from meshrecon_torch.kernels import all_kernels, library
     from meshrecon_torch.meshing import native
@@ -3449,6 +3658,8 @@ def main(argv=None) -> int:
     SETUP, BIN = binned.SETUP, binned.BIN  # K1's binning
     GN = (triangulate.GN_SOBEL, triangulate.GN_WALK, triangulate.GN_EXIT,
           triangulate.GN_FINISH)  # every flow update's triangulation
+    SWEEP = (plane_sweep.SWEEP_PROJ, plane_sweep.SWEEP_COST,
+             plane_sweep.SWEEP_BEST)  # every plane of the sweep, with K3c
     args_np = list(problems.fused_problem(B, K, H, W, seed=SEED))
     args_np[0], args_np[1] = state.pack_soup(problems.sphere_soup(64, 128))
     res = Results()
@@ -3493,38 +3704,45 @@ def main(argv=None) -> int:
     sweep_args = sweep_problem(torch, dev)
     k3c_phase(torch, dev, res, state.from_numpy(sweep_args, dev))
     run_sweep(torch, dev, sweep_args)
-    captured = {}
-    with _wrap(meshrecon_torch.pipeline.fused, "triangulate_pixels_batched",
-               _keep_largest(torch, captured)):
+    captured, swept = {}, {}
+    fused = meshrecon_torch.pipeline.fused
+    with _wrap(fused, "triangulate_pixels_batched",
+               _keep_largest(torch, captured)), _wrap(
+                   fused, "plane_sweep_depth_batched",
+                   _keep_largest_sweep(swept)):
         default = run_e2e(torch, dev, "default", [],
-                          (*render, K2, K3, K3C, K4, *GN))
+                          (*render, K2, K3, K3C, *SWEEP, K4, *GN))
     gn_phase(torch, dev, res, captured)
     del captured
+    sweep_phase(torch, dev, res, swept)
+    del swept
     rewarp = run_e2e(torch, dev, "rewarp", ["--variance-mode", "rewarp"],
-                     (*render, K2, K3, K3C, K4, K3B, *GN))
+                     (*render, K2, K3, K3C, *SWEEP, K4, K3B, *GN))
     run_e2e(torch, dev, "farneback", ["-f"],
-            (*render, K2, K3, K3C, K3B, *GN))
-    video_phase(torch, dev, (*render, K2, K3, K3C, K4))
+            (*render, K2, K3, K3C, *SWEEP, K3B, *GN))
+    video_phase(torch, dev, (*render, K2, K3, K3C, *SWEEP, K4))
     scenes_phase(torch, dev, (*render, K2, K3, K3B, K4))
     drivers_phase(torch, dev, (K3, K3B), render)
-    quality_phase(torch, (*render, K2, K3, K4), (K3C,))
+    quality_phase(torch, (*render, K2, K3, K4), (K3C, *SWEEP))
     meshing_phase(torch, dev)
     micro_phase(torch, (*render, K2, K3, K3B, K4))
-    studies_phase(torch, (*render, K2, K3, K3C, K4))
+    studies_phase(torch, (*render, K2, K3, K3C, *SWEEP, K4))
     config4_phase(torch, dev, res)
-    sharding_phase(torch, dev, args_np, render, (K2, K3, K4), (K3C,))
+    sharding_phase(torch, dev, args_np, render, (K2, K3, K4),
+                   (K3C, *SWEEP))
 
     # each kernel's launches on the path it serves
     path_launches = {k.name: default[k.name]
-                     for k in (*render, K2, K3, K3C, K4, *GN)}
+                     for k in (*render, K2, K3, K3C, *SWEEP, K4, *GN)}
     path_launches[K3B.name] = rewarp[K3B.name]
     path_launches[K6.name] = solver_launches[K6.name]
     for k in (binned.K5A, binned.K5B):
         path_launches[k.name] = raster_launches[k.name]
     for k in (roofline.R1, roofline.R2, roofline.R3, roofline.R4):
         path_launches[k.name] = roof_launches[k.name]
-    print("launches: SETUP, BIN, K1, K2, K3, K3c, K4, GN_SOBEL, GN_WALK, "
-          "GN_EXIT, GN_FINISH from the default reconstruction, "
+    print("launches: SETUP, BIN, K1, K2, K3, K3c, SWEEP_PROJ, SWEEP_COST, "
+          "SWEEP_BEST, K4, GN_SOBEL, GN_WALK, GN_EXIT, GN_FINISH from the "
+          "default reconstruction, "
           "K3b from the rewarp reconstruction, K6 from the solver check, "
           "K5a and K5b from the raster sweep tool, R1-R4 from the roofline "
           "tool (R3 and R4 with its graph replays)")

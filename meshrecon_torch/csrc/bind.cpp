@@ -54,6 +54,9 @@ int mr_gn_walk(P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
 int mr_gn_exit(P, P, P, P, I, I, I, I, P);
 int mr_gn_finish(P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                  I, I, I, I, I, F, F, F, F, P);
+int mr_sweep_proj(P, P, P, P, P, P, P, P, I, I, I, I, I, P);
+int mr_sweep_cost(P, P, P, P, P, P, P, I, I, I, I, P);
+int mr_sweep_best(P, P, P, P, P, I, I, I, I, P);
 }
 
 #define MR_ENTRIES(X)                                                        \
@@ -74,7 +77,10 @@ int mr_gn_finish(P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
   X(mr_gn_sobel)                                                             \
   X(mr_gn_walk)                                                              \
   X(mr_gn_exit)                                                              \
-  X(mr_gn_finish)
+  X(mr_gn_finish)                                                            \
+  X(mr_sweep_proj)                                                           \
+  X(mr_sweep_cost)                                                           \
+  X(mr_sweep_best)
 
 namespace {
 

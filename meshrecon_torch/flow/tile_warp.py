@@ -189,18 +189,21 @@ def sample_bilinear_masked_plain(srcs, scols, srows, valid):
     return torch.where(valid, bilinear_sample(srcs, scols, srows), 0.0)
 
 
-def tile_warp_sample_batched(srcs, scols, srows, valid):
+def tile_warp_sample_batched(srcs, scols, srows, valid, out=None):
     """Bilinear sample of a (..., H, W) stack at absolute coordinates
     (scols, srows) of the same shape, border-clamped; pixels where the bool
-    mask ``valid`` is false come out as 0.0. Returns (..., H, W) float32."""
+    mask ``valid`` is false come out as 0.0 (K3c reads their coordinates
+    nowhere). Returns (..., H, W) float32: on CUDA into ``out`` where
+    given, a contiguous float32 tensor of that shape."""
     if not srcs.is_cuda:
         return sample_bilinear_masked_plain(srcs, scols, srows, valid)
-    for t in (scols, srows, valid):
+    for t in (scols, srows, valid) + (() if out is None else (out,)):
         if t.shape != srcs.shape:
             raise ValueError(f"shape {tuple(t.shape)} != {tuple(srcs.shape)}")
     h, w = srcs.shape[-2:]
     n = srcs.numel() // (h * w)
-    out = torch.empty_like(srcs)
+    if out is None:
+        out = torch.empty_like(srcs)
     check_cuda("tile_warp_sample_batched", srcs, scols, srows, out)
     check_cuda("tile_warp_sample_batched", valid, dtype=torch.bool)
     if valid.device != srcs.device:

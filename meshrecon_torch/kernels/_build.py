@@ -85,6 +85,9 @@ _SIGNATURES = {
     "mr_gn_walk": "PPPPPPPP" + "PPP" + "I" * 11 + "FFF" + "P",
     "mr_gn_exit": "PP" + "PP" + "IIII" + "P",
     "mr_gn_finish": "PPPPPPPP" + "PPPP" + "PPP" + "I" * 10 + "FFFF" + "P",
+    "mr_sweep_proj": "PPPPP" + "PPP" + "IIIII" + "P",
+    "mr_sweep_cost": "PPPPP" + "PP" + "IIII" + "P",
+    "mr_sweep_best": "PPP" + "PP" + "IIII" + "P",
 }
 
 

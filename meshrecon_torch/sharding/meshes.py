@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from meshrecon_torch.depth.normals import estimate_normals_batched
-from meshrecon_torch.depth.plane_sweep import (SweepWindow, sweep_planes,
+from meshrecon_torch.depth.plane_sweep import (sweep_planes, sweep_window,
                                                sweep_windows)
 from meshrecon_torch.depth.triangulate import triangulate_pixels_batched
 from meshrecon_torch.flow.pyramid import compare
@@ -339,10 +339,10 @@ def sharded_fused_update(mesh: Mesh, height: int, width: int,
 def sharded_plane_sweep(mesh: Mesh, num_depths: int = 64):
     """Window-sharded plane sweep: the K side frames of one main camera
     split over the mesh's ``window`` axis. One controller sweeps the
-    planes; at each, every shard's K3c sample and cost ops run on its
-    device, and the shards' evidence (cost numerator and view support)
-    is summed on the first device in shard order, as is the count of
-    valid sides once (JAX's ``psum``s).
+    planes; at each, every shard's evidence (on CUDA SWEEP_PROJ, K3c and
+    SWEEP_COST) runs on its device, and the shards' evidence (cost
+    numerator and view support) is summed on the first device in shard
+    order, as is the count of valid sides once (JAX's ``psum``s).
 
     Returns a callable ``(frame_main, frames_side, cam_main, cams_side,
     side_valid, z_min, z_max) -> {depth, cost, valid}``, (H, W) each on
@@ -355,8 +355,8 @@ def sharded_plane_sweep(mesh: Mesh, num_depths: int = 64):
         _, shards = _shards(devices, (frames_side, cams_side, side_valid),
                             replicated=(frame_main, cam_main))
         z_lo, z_hi, zs = sweep_planes(z_min, z_max, num_depths, devices[0])
-        windows = [SweepWindow(fm[None], fs[None], cm[None], cs[None],
-                               sv[None], zs)
+        windows = [sweep_window(fm[None], fs[None], cm[None], cs[None],
+                                sv[None], zs)
                    for fm, cm, fs, cs, sv in shards]
         out = sweep_windows(windows, z_lo, z_hi, num_depths)
         return {k: v[0] for k, v in out.items()}

@@ -33,7 +33,11 @@ sharded update on one card's ``[cuda:0] * n`` bitwise against the
 unsharded update. GN (Gauss-Newton triangulation) bitwise against the
 eager sweeps on the card (``GaussNewtonBand``, ``gauss_newton``), whole
 frames and bands, and GN_EXIT equal to its plain version; the card path
-never runs the eager loop and reads the host once.
+never runs the eager loop and reads the host once. The plane sweep's
+kernels (SWEEP_PROJ, SWEEP_COST, SWEEP_BEST around K3c) bitwise against
+the eager planes on the card (``SweepWindow``), at c4's and the sweep
+update's shapes, side counts that are not multiples of 4, and a window in
+shards; the card path runs no eager op a plane.
 """
 
 import ctypes
@@ -1424,3 +1428,191 @@ def test_gn_triangulation_makes_one_host_sync(dev):
     assert t.counters["gn_kernel"] == 1
     assert t.counters["gn_sweeps"] == out["gn_sweeps"] >= 6
     assert 0 < t.counters["gn_steps"] <= out["gn_sweeps"] * 4 * 96 * 128
+
+
+def _sweep_batch(dev, b, k, h, w, n_valid=None, weighted=False, crop=None):
+    """A plane sweep's (frames_main, frames_side, cam_mains, cams_side,
+    side_valid, z_min, z_max, side_weight) on ``baseline_configs.window``'s
+    clip (its columns cut to ``crop``): main i is frame i, its sides the k
+    frames after it, each main its own z range; the slots past
+    ``n_valid[i]`` padded (side_valid false, their frames and cameras
+    kept, so the eager path samples them); vote weights uniform in [0, 1]
+    with exact 0s and 1s, or None."""
+    from meshrecon_torch.tools import baseline_configs
+
+    fm, fs, cam0, cams, _ = baseline_configs.window(h, w, b + k)
+    frames = np.concatenate([fm[None], fs])[..., :crop]
+    w = frames.shape[-1]
+    allc = np.concatenate([cam0[None], cams]).astype(np.float32)
+    sides = np.arange(k)[None] + np.arange(1, b + 1)[:, None]
+    sv = (np.ones((b, k), bool) if n_valid is None
+          else np.arange(k)[None] < np.asarray(n_valid)[:, None])
+    swt = None
+    if weighted:
+        rng = np.random.default_rng(b * 100 + k)
+        swt = np.clip(rng.uniform(-0.2, 1.2, (b, k, h, w)), 0.0,
+                      1.0).astype(np.float32)
+    z_min = (-0.8 + 0.05 * np.arange(b)).astype(np.float32)
+    z_max = (0.6 - 0.03 * np.arange(b)).astype(np.float32)
+    return [None if a is None else torch.from_numpy(
+        np.ascontiguousarray(a)).to(dev) for a in (
+            frames[:b], frames[sides], allc[:b], allc[sides], sv, z_min,
+            z_max, swt)]
+
+
+_SWEEP_CASES = {
+    # c4's: one main, 32 sides, 1080p, no weights
+    "c4": dict(b=1, k=32, h=1080, w=1920, depths=3),
+    # the sweep update's: B=4, K=8, half the slots padded, vote weights
+    "it1": dict(b=4, k=8, h=480, w=640, depths=3, n_valid=[7, 2, 3, 4],
+                weighted=True),
+    # side counts that are not multiples of the sums' four accumulators;
+    # a width that is not a multiple of 4 (a pixel a thread)
+    "k3": dict(b=2, k=3, h=96, w=128, crop=126, depths=8),
+    "k7": dict(b=2, k=7, h=96, w=128, depths=8, n_valid=[7, 5],
+               weighted=True),
+    # a window in two shards, of 4 and 3 sides
+    "shards": dict(b=2, k=7, h=96, w=128, depths=8, n_valid=[6, 7],
+                   weighted=True, cuts=(4, 7)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SWEEP_CASES))
+def test_sweep_kernels_match_the_eager_path(dev, case):
+    """SWEEP_PROJ, K3c and SWEEP_COST against the eager plane on the card
+    (each plane's num and den), and the sweep with SWEEP_BEST against the
+    eager running best (depth, cost, valid), bit for bit: every operation
+    in the eager order, the sums over sides in torch's CUDA reduction
+    order, the padded slots' zero terms skipped; a window in shards sums
+    the shards' evidence in shard order."""
+    from meshrecon_torch.depth import plane_sweep as ps
+
+    spec = dict(_SWEEP_CASES[case])
+    depths = spec.pop("depths")
+    cuts = spec.pop("cuts", (spec["k"],))
+    fm, fs, cm, cs, sv, z0, z1, swt = _sweep_batch(dev, **spec)
+    z_min, z_max, zs = ps.sweep_planes(z0, z1, depths, dev)
+
+    def windows(cls):
+        out, lo = [], 0
+        for hi in cuts:
+            out.append(cls(fm, fs[:, lo:hi], cm, cs[:, lo:hi], sv[:, lo:hi],
+                           zs, None if swt is None else swt[:, lo:hi]))
+            lo = hi
+        return out
+
+    for card, eager in zip(windows(ps.KernelWindow),
+                           windows(ps.SweepWindow)):
+        for d in range(depths):
+            ours = [t.clone() for t in card.evidence(d)]
+            for got, want, name in zip(ours, eager.evidence(d),
+                                       ("num", "den")):
+                torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                           msg=f"{name}, plane {d}")
+    kernels = (ps.SWEEP_PROJ, tile_warp.K3C, ps.SWEEP_COST, ps.SWEEP_BEST)
+    before = [k.launches for k in kernels]
+    out = ps.sweep_windows(windows(ps.KernelWindow), z_min, z_max, depths)
+    n = len(cuts) * depths
+    assert [k.launches - c for k, c in zip(kernels, before)] == [
+        n, n, n, depths]
+    ref = ps.sweep_windows(windows(ps.SweepWindow), z_min, z_max, depths)
+    outs = [out]
+    if len(cuts) == 1:
+        outs.append(ps.plane_sweep_depth_batched(
+            fm, fs, cm, cs, sv, z0, z1, depths, side_weight=swt))
+    for got in outs:
+        for key in ("depth", "cost", "valid"):
+            torch.testing.assert_close(got[key], ref[key], rtol=0, atol=0,
+                                       equal_nan=True, msg=key)
+    assert out["valid"].any()
+
+
+def test_sweep_card_path_runs_no_eager_op_a_plane(dev, monkeypatch):
+    """On the card a plane is K3c and the three SWEEP kernels, whoever
+    calls the sweep: with the eager plane (``SweepWindow``'s ``evidence``,
+    ``fields`` and ``sums``, ``take_plane``, ``_box3``) patched to raise,
+    the sweep update (two passes), ``plane_sweep_depth`` and the
+    window-sharded sweep still run, ``sweep_kernel`` counts one a plane,
+    and a sweep of 6 planes dispatches no more torch operators than one
+    of 2."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from meshrecon_torch.depth import plane_sweep as ps
+    from meshrecon_torch.sharding import make_window_mesh, sharded_plane_sweep
+    from meshrecon_torch.utils.profiling import StageTimer
+
+    def eager(*args, **kwargs):
+        raise AssertionError("an eager plane ran on the card")
+
+    for owner, name in ((ps.SweepWindow, "evidence"),
+                        (ps.SweepWindow, "fields"), (ps.SweepWindow, "sums"),
+                        (ps, "take_plane"), (ps, "_box3"),
+                        (ps, "_planes_eager")):
+        monkeypatch.setattr(owner, name, eager)
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    fm, fs, cm, cs, sv, z0, z1, swt = _sweep_batch(
+        dev, 2, 5, 48, 64, n_valid=[5, 3], weighted=True)
+    ops = []
+    for depths in (2, 6):
+        with Ops() as mode:
+            ps.plane_sweep_depth_batched(fm, fs, cm, cs, sv, z0, z1, depths,
+                                         side_weight=swt)
+        ops.append(mode.n)
+    assert ops[0] == ops[1] > 0
+
+    t = StageTimer()
+    with t.stage("sweeps"):
+        args = list(problems.fused_problem(2, 3, 48, 64, seed=5))
+        args[0], args[1] = state.pack_soup(problems.sphere_soup(16, 32))
+        out = fused_sweep_update_batched(*state.from_numpy(args, dev), 48,
+                                         64, num_depths=7, passes=2)
+        assert out["valid"].any()
+        one = ps.plane_sweep_depth(fm[0], fs[0], cm[0], cs[0], sv[0], -0.8,
+                                   0.6, num_depths=5)
+        two = sharded_plane_sweep(make_window_mesh(2, devices=[dev, dev]),
+                                  num_depths=4)(
+            fm[0], fs[0], cm[0], cs[0], sv[0], -0.8, 0.6)
+        assert one["valid"].any() and two["valid"].any()
+    assert t.counters["sweep_kernel"] == 2 * 7 + 5 + 4
+
+
+def test_sweep_kernels_refuse_what_they_do_not_take(dev):
+    """KernelWindow raises on inputs whose shapes disagree, on another
+    device and on a plane it does not hold; SWEEP_BEST's wrapper on a state
+    or plane it does not hold, launching nothing."""
+    from meshrecon_torch.depth import plane_sweep as ps
+
+    fm, fs, cm, cs, sv, z0, z1, swt = _sweep_batch(dev, 2, 3, 16, 24,
+                                                   weighted=True)
+    _, _, zs = ps.sweep_planes(z0, z1, 4, dev)
+    args = [fm, fs, cm, cs, sv, zs, swt]
+    bad = [(0, fm[:1]), (3, cs[:, :2]), (4, sv[:, :2]), (5, zs[:, :1]),
+           (6, swt[..., :-1]), (1, fs.cpu())]
+    for i, t in bad:
+        with pytest.raises(ValueError):
+            ps.KernelWindow(*args[:i], t, *args[i + 1:])
+    win = ps.KernelWindow(*args)
+    with pytest.raises(ValueError):
+        win.evidence(4)
+    num, den = win.evidence(0)
+    st = torch.zeros((6, 2, 16, 24), device=dev)
+    pending = torch.zeros((2, 16, 24), dtype=torch.bool, device=dev)
+    before = ps.SWEEP_BEST.launches
+    for call in (lambda: ps.sweep_best(num, den, zs, 0, st[:5], pending),
+                 lambda: ps.sweep_best(num, den, zs, 4, st, pending),
+                 lambda: ps.sweep_best(num, den, zs, 0, st, pending.float()),
+                 lambda: ps.sweep_best(num, den[:1], zs, 0, st, pending)):
+        with pytest.raises(ValueError):
+            call()
+    assert ps.SWEEP_BEST.launches == before
+    ps.sweep_best(num, den, zs, 3, st, pending)
+    assert ps.SWEEP_BEST.launches == before + 1
