@@ -2,16 +2,6 @@
 """Chip check of meshrecon_torch, the PyTorch / CUDA port, on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-    [--parent-raster PARENT/meshrecon_torch/csrc/raster.cu]
-    [--parent-raster-setup PARENT/meshrecon_torch/csrc/raster_setup.cu]
-    [--parent-warp PARENT/meshrecon_torch/csrc/warp.cu]
-    [--parent-roofline PARENT/meshrecon_torch/csrc/roofline.cu]
-
-Each ``--parent-*`` source (another tree's, e.g. the parent commit's from
-an unpacked ``git archive`` under ``build/``) is built apart with the same
-flags and its kernels (K1 and K5; SETUP and BIN; K3b; R2) are timed
-against this tree's in the same alternating rounds, and must equal them
-(bit for bit; BIN's counts and list prefixes).
 
 1. Prints the device (``torch.cuda.get_device_name`` and nvidia-smi's name
    and power limit); exits non-zero without a CUDA device.
@@ -45,16 +35,11 @@ against this tree's in the same alternating rounds, and must equal them
    equal), at 16 cameras on the 16,384- and 65,536-triangle spheres (six
    shapes); the launch geometry (threads, resident CTAs an SM, clusters)
    printed. At each shape both kernels are timed in 7 alternating rounds:
-   the wrapper eager, the C entry through ctypes eager and from a CUDA
-   graph of 20 calls (the kernel alone), BIN also against its library
-   call, the ``torch.sort`` of the tile keys plus the ``sum`` of their
-   activity that the JAX package bins with (binned.py:597-598, 612-613);
-   with ``--parent-raster-setup`` the parent's two kernels the same way,
-   wrappers included (that raster_setup.cu built with this tree's other
-   kernels and launch binding into a second extension module), whose
-   records and chunk boxes must equal this tree's bit for bit and whose
-   counts and list prefixes must equal this tree's. The phase prints its
-   wall seconds.
+   the wrapper eager, the C entry (the binding's function of the entry)
+   eager and from a CUDA graph of 20 calls (the kernel alone), BIN also
+   against its library call, the ``torch.sort`` of the tile keys plus the
+   ``sum`` of their activity that the JAX package bins with
+   (binned.py:597-598, 612-613). The phase prints its wall seconds.
    Then the raster phase. K5 (the two-level raster, one kernel for
    the TPU's K5a and K5b) bitwise against ``render_depth`` through
    ``render_depth_binned(two_level=True)`` at one camera (K5a) and
@@ -66,19 +51,16 @@ against this tree's in the same alternating rounds, and must equal them
    cameras, K1 at 16) the coverage walk's counts (the sweep tool's
    ``walk_counts``: candidate records, tile and warp hits, coverage tests
    against the first design's, the longest tile and warp walks) and
-   the kernel alone from a CUDA graph of 20 calls in 7 alternating rounds,
-   through ctypes, bitwise against ``render_depth``; with
-   ``--parent-raster`` against the parent's kernels (that raster.cu built
-   apart with the same flags) in the same rounds. Then the raster sweep tool
+   the kernel alone (its C entry) from a CUDA graph of 20 calls in 7
+   rounds, bitwise against ``render_depth``. Then the raster sweep tool
    (``meshrecon_torch.tools.raster_sweep``) at its defaults with chunks 8
    and 16.
    Then the roofline phase: R1-R4 (the roofline probes) against their
    plain versions at the roofline tool's shapes (R1 4096x4096, R2 one
    256x512 block of 2,048 FMAs, R3 8x128 in one CTA, R4 512x128 in 64 and
    in 1 CTAs; R1, R3, R4 bitwise, R2 1e-6 relative), R2 eager and from a
-   CUDA graph in 7 alternating rounds (against the parent's R2), with its
-   geometry and nvidia-smi's SM clock sampled while its graph replays, R1,
-   R3 and R4 timed
+   CUDA graph in 7 alternating rounds, with its geometry and nvidia-smi's
+   SM clock sampled while its graph replays, R1, R3 and R4 timed
    against ``torch.mul`` / ``torch.add``, their library yardsticks, eager
    and from CUDA graphs in 7 alternating rounds (median and min-max
    spread), and R3's launch path split the same way (the C entry alone
@@ -244,9 +226,7 @@ float32 (``Precision.HIGHEST``).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
-import functools
 import json
 import statistics
 import subprocess
@@ -827,8 +807,8 @@ def _bits_err(torch, a, b):
     return 0.0
 
 
-def _setup_entry(torch, entry, cams, soup, valid, group, chunk):
-    """A call of a ``mr_raster_setup`` entry (:func:`_c_entry`) into
+def _setup_entry(torch, cams, soup, valid, group, chunk):
+    """A call of the ``mr_raster_setup`` entry (:func:`_c_entry`) into
     outputs made once. Returns (call, packed, cbox)."""
     n, t = cams.shape[0], soup.shape[0]
     n_rec = -(-2 * t // group) * group
@@ -838,6 +818,7 @@ def _setup_entry(torch, entry, cams, soup, valid, group, chunk):
                        device=cams.device)
     args = [cams.data_ptr(), soup.data_ptr(), valid.data_ptr(),
             packed.data_ptr(), cbox.data_ptr(), n, t, n_rec, chunk]
+    entry = _c_entry("mr_raster_setup")
 
     def call():
         entry(*args, torch.cuda.current_stream().cuda_stream)
@@ -845,8 +826,8 @@ def _setup_entry(torch, entry, cams, soup, valid, group, chunk):
     return call, packed, cbox
 
 
-def _bin_entry(torch, entry, cbox, supers):
-    """A call of a ``mr_raster_bin`` entry (:func:`_c_entry`) on the chunk
+def _bin_entry(torch, cbox, supers):
+    """A call of the ``mr_raster_bin`` entry (:func:`_c_entry`) on the chunk
     boxes ``cbox`` at H x W into outputs made once. Returns (call, lists,
     counts)."""
     from meshrecon_torch.raster import binned
@@ -860,6 +841,7 @@ def _bin_entry(torch, entry, cbox, supers):
     tiles = binned._screen(H, W, cbox.device)[1]
     args = [cbox.data_ptr(), *(t.data_ptr() for t in tiles),
             lists.data_ptr(), counts.data_ptr(), n, nch, supers, ntx, nty]
+    entry = _c_entry("mr_raster_bin")
 
     def call():
         entry(*args, torch.cuda.current_stream().cuda_stream)
@@ -875,14 +857,14 @@ def _same_lists(torch, lists, counts, want_lists, want_counts):
         torch.where(live, lists, 0), torch.where(live, want_lists, 0)))
 
 
-def _entry_timers(torch, name, call):
-    """``name eager`` (CUDA events around 20 back-to-back calls) and
-    ``name graph`` (a CUDA graph of 20 calls) timers of an entry call."""
-    return {f"{name} eager": lambda: _cuda_ms(torch, call, 20),
-            f"{name} graph": _graph_timer(torch, call, 20, 3)}
+def _entry_timers(torch, call):
+    """``entry eager`` (CUDA events around 20 back-to-back calls) and
+    ``entry graph`` (a CUDA graph of 20 calls) timers of an entry call."""
+    return {"entry eager": lambda: _cuda_ms(torch, call, 20),
+            "entry graph": _graph_timer(torch, call, 20, 3)}
 
 
-def binning_phase(torch, dev, res, slice_args, parent=None):
+def binning_phase(torch, dev, res, slice_args):
     """The binning's two kernels against their plain versions at the flow
     update's 16 cameras, on the 16,384- and 65,536-triangle spheres at
     640x480, at chunk 8, chunk 16 and superchunks of 8 chunks of 8: SETUP's
@@ -890,11 +872,8 @@ def binning_phase(torch, dev, res, slice_args, parent=None):
     (NaN-aware), and BIN's counts and list prefixes against ``bin_chunks``
     / ``bin_superchunks``, fed the plain version's chunk boxes. Each kernel
     is timed in 7 alternating rounds: its wrapper eager, its C entry
-    through ctypes eager and from a CUDA graph of 20 calls (the kernel
-    alone), BIN also against its library call; with ``parent`` (another
-    tree's raster_setup.cu built apart, :func:`build_parent_binding`) the
-    parent's two kernels the same way, their wrappers included, whose
-    outputs must equal this tree's."""
+    eager and from a CUDA graph of 20 calls (the kernel alone), BIN also
+    against its library call."""
     from meshrecon_torch import problems, state
     from meshrecon_torch.kernels import library
     from meshrecon_torch.raster import binned
@@ -909,26 +888,6 @@ def binning_phase(torch, dev, res, slice_args, parent=None):
           f"resident CTAs an SM; BIN {shape[2]} threads a CTA, {shape[3]} "
           f"resident CTAs an SM, clusters of up to {shape[4]} CTAs, "
           f"{shape[5]} of them resident at once")
-    libs = {"new": lib}
-    parent_ext = None
-    if parent is not None:
-        libs["parent"], parent_ext = parent
-    entries = {name: (_c_entry(lb, "mr_raster_setup"),
-                      _c_entry(lb, "mr_raster_bin"))
-               for name, lb in libs.items()}
-
-    def wrapper_timers(kernel, call):
-        """``wrapper eager`` (this tree's kernel) and, with a parent, the
-        same wrapper launching the parent's kernel (``parent wrapper
-        eager``): CUDA events around 20 back-to-back calls."""
-        timers = {"wrapper eager": lambda: _cuda_ms(torch, call, 20)}
-        if parent_ext is not None:
-            def parent_timer():
-                with _launching(kernel, parent_ext):
-                    return _cuda_ms(torch, call, 20)
-            timers["parent wrapper eager"] = parent_timer
-        return timers
-
     cams = torch.cat([slice_args[2][:, None], slice_args[4]], 1).reshape(
         B * (K + 1), 4, 4)
     ncam = cams.shape[0]
@@ -954,22 +913,22 @@ def binning_phase(torch, dev, res, slice_args, parent=None):
             if plain_ms is None:
                 plain_ms = _cuda_ms(torch, lambda: binned.pack_records(
                     cams, soup, valid, group), 5)
-            timers = wrapper_timers(binned.SETUP, lambda: binned.setup_records(
-                cams, soup, valid, group, chunk))
-            outs = []  # a graph's outputs live as long as its replays
-            for name, (setup, _) in entries.items():
-                call, p_out, c_out = _setup_entry(torch, setup, cams, soup,
-                                                  valid, group, chunk)
-                call()
-                torch.cuda.synchronize()
-                if _bits_err(torch, p_out, packed) or _bits_err(
-                        torch, c_out, cbox):
-                    raise AssertionError(f"raster_setup [{shape_label}]: "
-                                         f"the {name} entry differs from "
-                                         "the wrapper's records")
-                outs.append((p_out, c_out))
-                timers.update(_entry_timers(torch, name, call))
-            ms = _interleaved(f"raster_setup [{shape_label}]", timers)
+            # the C entry's outputs live as long as its graph's replays
+            call, p_out, c_out = _setup_entry(torch, cams, soup, valid,
+                                              group, chunk)
+            call()
+            torch.cuda.synchronize()
+            if _bits_err(torch, p_out, packed) or _bits_err(torch, c_out,
+                                                             cbox):
+                raise AssertionError(f"raster_setup [{shape_label}]: the "
+                                     "entry differs from the wrapper's "
+                                     "records")
+            # the wrapper: CUDA events around 20 back-to-back calls
+            ms = _interleaved(f"raster_setup [{shape_label}]", {
+                "wrapper eager": lambda: _cuda_ms(
+                    torch, lambda: binned.setup_records(
+                        cams, soup, valid, group, chunk), 20),
+                **_entry_timers(torch, call)})
             # bytes: cameras, soup, validity in; records and chunk boxes
             # out; operations: ~360 a (camera, triangle), float32 and
             # float64 alike (fb.SETUP_OPS)
@@ -978,7 +937,7 @@ def binning_phase(torch, dev, res, slice_args, parent=None):
                     work=(ncam * 64 + soup.numel() * 4 + valid.numel()
                           + (packed.numel() + cbox.numel()) * 4,
                           fb.SETUP_OPS * ncam * soup.shape[0]))
-            del packed, cbox, plain, outs
+            del packed, cbox, plain, p_out, c_out
 
             def plain_bin():
                 if supers == 1:
@@ -991,20 +950,16 @@ def binning_phase(torch, dev, res, slice_args, parent=None):
             torch.cuda.synchronize()
             same = _same_lists(torch, lists, counts, want_lists, want_counts)
             entries_n = int(want_counts.sum().item())
-            timers = wrapper_timers(binned.BIN, lambda: binned.tile_lists(
-                plain_cbox, H, W, supers))
-            outs = []
-            for name, (_, bin_fn) in entries.items():
-                call, l_out, c_out = _bin_entry(torch, bin_fn, plain_cbox,
-                                                supers)
-                call()
-                torch.cuda.synchronize()
-                if not _same_lists(torch, l_out, c_out, lists, counts):
-                    raise AssertionError(f"raster_bin [{shape_label}]: the "
-                                         f"{name} entry's lists differ from "
-                                         "the wrapper's")
-                outs.append((l_out, c_out))
-                timers.update(_entry_timers(torch, name, call))
+            call, l_out, c_out = _bin_entry(torch, plain_cbox, supers)
+            call()
+            torch.cuda.synchronize()
+            if not _same_lists(torch, l_out, c_out, lists, counts):
+                raise AssertionError(f"raster_bin [{shape_label}]: the "
+                                     "entry's lists differ from the "
+                                     "wrapper's")
+            timers = {"wrapper eager": lambda: _cuda_ms(
+                torch, lambda: binned.tile_lists(plain_cbox, H, W, supers),
+                20), **_entry_timers(torch, call)}
             del lists, want_lists
             # the tile keys the JAX package sorts (binned.py:590-598)
             keys, active = binned._tile_keys(
@@ -1022,7 +977,7 @@ def binning_phase(torch, dev, res, slice_args, parent=None):
             timers["torch.sort"] = lambda: _cuda_ms(torch, library_bin, 20)
             ms = _interleaved(f"raster_bin [{shape_label}] against torch.sort "
                               "+ sum of its tile keys", timers)
-            del keys, active, outs
+            del keys, active, l_out, c_out
             bin_plain_ms = _cuda_ms(torch, plain_bin, 3)
             # bytes: chunk boxes in, the listed ids and the counts out;
             # operations: the four comparisons of each listed group (the
@@ -1043,102 +998,13 @@ def binning_phase(torch, dev, res, slice_args, parent=None):
 RASTER_GRAPH_CALLS = 20  # raster calls in a CUDA graph of the raster phase
 
 
-def build_parent(src):
-    """Build another tree's kernel source (the parent commit's
-    ``csrc/raster.cu``, ``warp.cu`` or ``roofline.cu``) alone, with the
-    port's nvcc flags, into build/chip_smoke/ and load it through ctypes
-    (its entries have this tree's signatures, or, in a source from before
-    the tile axis's bands, K1's and K3b's without their band arguments:
-    ``pre_band``); prints the compiler's register report."""
-    from meshrecon_torch.kernels import _build
-
-    src = Path(src).resolve()
-    out = Path(f"build/chip_smoke/parent_{src.stem}.so").resolve()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                           "-o", str(out), str(src)],
-                          capture_output=True, text=True, timeout=600)
-    if done.returncode:
-        raise RuntimeError(f"nvcc failed on {src}:\n{done.stderr}")
-    print(f"build: {src} (parent), {time.perf_counter() - t0:.1f} s")
-    for line in (done.stdout + done.stderr).splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"ptxas (parent): {line.strip()}")
-    lib = ctypes.CDLL(str(out))
-    text = src.read_text()
-    lib.pre_band = "row_lo" not in text and "src_row0" not in text
-    return lib
-
-
-# K1's and K3b's entries in a tree from before the tile axis's bands
-_PRE_BAND = {"mr_raster_tiles": "PPPPPPPPPP" + "IIIIIII" + "P",
-             "mr_warp_bicubic": "PPPP" + "III" + "P"}
-
-
-def build_parent_binding(src):
-    """Build another tree's source of one kernel file (the parent commit's
-    ``csrc/raster_setup.cu``) with this tree's other kernels and launch
-    binding (``csrc/bind.cpp``), with the port's flags, into
-    build/chip_smoke/, and load it twice: through ctypes (its C entries)
-    and as a second extension module, whose entries launch the parent's
-    kernels through this tree's wrappers (:func:`_launching`). Prints the
-    build time and the compiler's register report of ``src``."""
-    from meshrecon_torch.kernels import _build
-
-    src = Path(src).resolve()
-    out = Path("build/chip_smoke").resolve()
-    out.mkdir(parents=True, exist_ok=True)
-    srcs = [src] + [s for s in _build._sources()
-                    if s.suffix == ".cu" and s.name != src.name]
-    objs = [out / f"parent_bind_{i}_{s.stem}.o" for i, s in enumerate(srcs)]
-    bind_obj = out / "parent_bind.o"
-    lib = out / f"parent_{src.stem}_bind.so"
-    t0 = time.perf_counter()
-    log = _build._run_all(
-        [[_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o", str(o), str(s)]
-         for s, o in zip(srcs, objs)] + [_build.bind_command(bind_obj)])
-    _build._run_all([[_build._nvcc(), "-gencode",
-                      "arch=compute_90a,code=sm_90a", "-shared", "-o",
-                      str(lib), *map(str, objs), str(bind_obj)]])
-    print(f"build: {src} (parent) with this tree's other kernels and "
-          f"binding, {time.perf_counter() - t0:.1f} s")
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry" in line and f"{src.stem}_cu" in line:
-            print("ptxas (parent): " + " | ".join(
-                x.strip() for x in lines[i:i + 4]))
-    return ctypes.CDLL(str(lib)), _build.import_binding(lib)
-
-
-@contextlib.contextmanager
-def _launching(kernel, ext):
-    """Launch ``kernel``'s entry from ``ext`` (another build of the
-    binding, :func:`build_parent_binding`) through its wrapper, this
-    tree's launch path, until the block ends."""
+def _c_entry(name):
+    """The binding's own function of launch entry ``name``, which takes the
+    stream last: what the kernel alone costs, with no wrapper and no count.
+    A non-zero CUDA status raises."""
     from meshrecon_torch.kernels import library
 
-    old = kernel._fn
-    kernel._fn = functools.partial(library().ext.launch,
-                                   getattr(ext, kernel.entry))
-    try:
-        yield
-    finally:
-        kernel._fn = old
-
-
-def _c_entry(lib, name):
-    """``lib``'s launch entry ``name`` through ctypes, its argument types
-    from ``_SIGNATURES``: what the kernel alone costs, with no wrapper and
-    no count. A non-zero CUDA status raises."""
-    from meshrecon_torch.kernels._build import _SIGNATURES
-
-    fn = getattr(lib, name)
-    signature = (_PRE_BAND[name] if getattr(lib, "pre_band", False)
-                 and name in _PRE_BAND else _SIGNATURES[name])
-    fn.argtypes = [{"P": ctypes.c_void_p, "I": ctypes.c_int,
-                    "F": ctypes.c_float}[kind] for kind in signature]
-    fn.restype = ctypes.c_int
+    fn = getattr(library().ext, name)
 
     def call(*args):
         code = fn(*args)
@@ -1147,10 +1013,9 @@ def _c_entry(lib, name):
     return call
 
 
-def _raster_entry(torch, lib, bins):
-    """A call of ``lib``'s K1 (one-level ``bins``) or K5 entry on ``bins``
-    through ctypes (:func:`_c_entry`), into an output made once. Returns
-    (call, out)."""
+def _raster_entry(torch, bins):
+    """A call of the K1 (one-level ``bins``) or K5 entry on ``bins``
+    (:func:`_c_entry`), into an output made once. Returns (call, out)."""
     from meshrecon_torch.raster import binned
 
     packed, lists, counts = bins["packed"], bins["lists"], bins["counts"]
@@ -1159,12 +1024,12 @@ def _raster_entry(torch, lib, bins):
     out = torch.empty((n, h, w), dtype=torch.float32, device=packed.device)
     ptrs = [t.data_ptr() for t in (*bins["grid"], *bins["tiles"], out)]
     name = "mr_raster_tiles" if bins["cbox"] is None else "mr_raster_tiles2"
-    fn = _c_entry(lib, name)
+    fn = _c_entry(name)
     if bins["cbox"] is None:
+        # the whole frame's rows
         args = [packed.data_ptr(), lists.data_ptr(), counts.data_ptr(), *ptrs,
-                n, n_rec, lists.shape[-1], h, w, binned.TILE, bins["chunk"]]
-        if not getattr(lib, "pre_band", False):
-            args += [0, h]  # the whole frame's rows
+                n, n_rec, lists.shape[-1], h, w, binned.TILE, bins["chunk"],
+                0, h]
     else:
         args = [packed.data_ptr(), bins["cbox"].data_ptr(), lists.data_ptr(),
                 counts.data_ptr(), *ptrs, n, n_rec, lists.shape[-1], h, w,
@@ -1190,43 +1055,35 @@ def _walk_line(label, bins):
           f"walk {c['longest_warp']}")
 
 
-def _kernel_rounds(torch, label, bins, ref, libs):
-    """The kernel alone on ``bins`` through each of ``libs`` (name -> a
-    ctypes library with the raster entries: this tree's, the parent's),
-    from a CUDA graph of RASTER_GRAPH_CALLS calls each, in 7 alternating
-    rounds; each output must equal ``ref`` bit for bit."""
-    timers, outs = {}, []
-    for name, lib in libs.items():
-        call, out = _raster_entry(torch, lib, bins)
-        outs.append(out)  # a graph's output lives as long as its replays
-        call()
-        torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            raise AssertionError(f"{label}: the {name} kernel differs from "
-                                 "render_depth")
-        timers[name] = _graph_timer(torch, call, RASTER_GRAPH_CALLS, 3)
-    _interleaved(f"kernel alone, graph [{label}]", timers)
+def _kernel_rounds(torch, label, bins, ref):
+    """The kernel alone on ``bins`` (its C entry), from a CUDA graph of
+    RASTER_GRAPH_CALLS calls, in 7 rounds; its output must equal ``ref``
+    bit for bit."""
+    call, out = _raster_entry(torch, bins)  # out lives as long as the graph
+    call()
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"{label}: the kernel differs from "
+                             "render_depth")
+    _interleaved(f"kernel alone, graph [{label}]", {
+        "kernel": _graph_timer(torch, call, RASTER_GRAPH_CALLS, 3)})
 
 
-def raster_phase(torch, dev, res, slice_args, parent=None):
+def raster_phase(torch, dev, res, slice_args):
     """K5 (the two-level raster) against ``render_depth``, bitwise, through
     both of its wrappers: K5a at one camera, K5b at 4 and at the flow
     update's 16 cameras, on the 16,384- and 65,536-triangle spheres and the
     fused problem's soup at 640x480; each with its wrapper, binning and
     kernel ms, and K1's split and both binnings' peak memory at 16 cameras.
     For each case (and K1 at 16 cameras) the coverage walk's counts, and
-    the kernel alone from a CUDA graph in 7 alternating rounds against the
-    kernels of ``parent`` (the parent's raster.cu, built apart) when given.
-    Then the raster sweep tool at its defaults with chunks 8 and 16, its
-    launch counts reset just before: returns them (K5a's and K5b's path)."""
+    the kernel alone from a CUDA graph in 7 rounds. Then the raster sweep
+    tool at its defaults with chunks 8 and 16, its launch counts reset just
+    before: returns them (K5a's and K5b's path)."""
     from meshrecon_torch import problems, state
-    from meshrecon_torch.kernels import all_kernels, library
+    from meshrecon_torch.kernels import all_kernels
     from meshrecon_torch.raster import binned, rasterizer
     from meshrecon_torch.tools import raster_sweep
 
-    libs = {"new": library().cdll}
-    if parent is not None:
-        libs["parent"] = parent
     cams16 = torch.cat([slice_args[2][:, None], slice_args[4]], 1).reshape(
         B * (K + 1), 4, 4)
     soups = [(f"{2 * nt * nph} tris", state.pack_soup(
@@ -1267,8 +1124,7 @@ def raster_phase(torch, dev, res, slice_args, parent=None):
                   f"binning {bin_ms:.4f} ms, kernel alone {kern_ms:.4f} ms "
                   f"(list table {bins['lists'].numel()} entries)")
             _walk_line(f"{kernel.name}, {label}", bins)
-            _kernel_rounds(torch, f"{kernel.name}, {label}", bins, ref,
-                           libs)
+            _kernel_rounds(torch, f"{kernel.name}, {label}", bins, ref)
             if ncam == len(cams16):
                 ref16 = ref
             del bins
@@ -1291,7 +1147,7 @@ def raster_phase(torch, dev, res, slice_args, parent=None):
                                                                bins), 10)
         label = f"{binned.K1.name}, {len(cams)}x{H}x{W}, {soup_label}"
         _walk_line(label, bins)
-        _kernel_rounds(torch, label, bins, ref16, libs)
+        _kernel_rounds(torch, label, bins, ref16)
         del bins, cbox
         mem1 = _peak_mb(torch, lambda: binned.bin_soup(cams, soup, valid, H,
                                                        W))
@@ -1348,19 +1204,17 @@ def _r2_clocks(torch, call):
           f"replays (every 100 ms): {samples}")
 
 
-def roofline_phase(torch, dev, res, parent=None):
+def roofline_phase(torch, dev, res):
     """R1-R4 against their plain versions at the roofline tool's shapes:
     R1, R3 and R4 bitwise, R2 to 1e-6 relative (the plain version's float64
     sum can round before its float32 rounding). R2 eager (50 calls) and
     from a CUDA graph of 100 calls in 7 alternating rounds, with its
-    geometry and the SM clock while it runs; given ``parent`` (the
-    parent's roofline.cu, built apart) against the parent's R2 through
-    ctypes in the same rounds, which must equal R2 bit for bit. Then the
-    roofline tool
+    geometry and the SM clock while it runs. Then the roofline tool
     (``meshrecon_torch.tools.roofline``) in-process, its launch counts reset
     just before. Returns (the tool's numbers, its launches); R3's and R4's
     launches add the tool's CUDA-graph replays x the launches captured."""
     from meshrecon_torch.kernels import all_kernels, library
+    from meshrecon_torch.kernels._build import entry_kinds
     from meshrecon_torch.tools import roofline as rl
 
     gen = torch.Generator().manual_seed(SEED + 4)
@@ -1405,28 +1259,11 @@ def roofline_phase(torch, dev, res, parent=None):
 
     def r2():
         rl.fma_chain(b, out=o)
-    timers = {"R2 eager": lambda: _cuda_ms(torch, r2, 50),
-              "R2 graph": _graph_timer(torch, r2)}
-    if parent is not None:
-        parent_r2 = _c_entry(parent, "mr_roofline_fma")
-        p_out = torch.empty_like(b)
-        p_args = (b.data_ptr(), p_out.data_ptr(), b.numel(), rl.INNER)
-
-        def parent_call():
-            # the stream at call time: a graph captures on its own
-            parent_r2(*p_args, torch.cuda.current_stream().cuda_stream)
-        parent_call()
-        torch.cuda.synchronize()
-        if not torch.equal(p_out, out):
-            raise AssertionError("R2 differs from the parent's R2")
-        print(f"{rl.R2.name}: equal to the parent's R2 bit for bit")
-        timers["parent eager"] = lambda: _cuda_ms(torch, parent_call, 50)
-        timers["parent graph"] = _graph_timer(torch, parent_call)
     t = _interleaved(
-        f"R2 fma_chain 256x512, {rl.INNER} FMAs"
-        + (" against the parent's R2" if parent is not None else "")
-        + f", eager (50 calls) and device (a CUDA graph of {GRAPH_CALLS} "
-        "calls)", timers)
+        f"R2 fma_chain 256x512, {rl.INNER} FMAs, eager (50 calls) and "
+        f"device (a CUDA graph of {GRAPH_CALLS} calls)",
+        {"R2 eager": lambda: _cuda_ms(torch, r2, 50),
+         "R2 graph": _graph_timer(torch, r2)})
     flops = 2 * rl.INNER * b.numel()
     print(f"{rl.R2.name}: " + "; ".join(
         f"{name} {flops / (t[name] * 1e-3) / 1e12:.2f} TFLOP/s"
@@ -1469,10 +1306,11 @@ def roofline_phase(torch, dev, res, parent=None):
     c = torch.zeros((rl.TINY_ROWS, rl.TINY_COLS), device=dev)
     o = torch.empty_like(c)
     lib = library()
-    # the C entry through ctypes, as launches went before the binding
+    # the C entry through ctypes, as launches went before the binding, its
+    # argument types from bind.cpp's declaration
     entry = ctypes.CDLL(str(lib.path))[rl.R3.entry]
-    entry.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
+    entry.argtypes = [{"P": ctypes.c_void_p, "I": ctypes.c_int}[kind]
+                      for kind in entry_kinds()[rl.R3.entry]]
     bound = getattr(lib.ext, rl.R3.entry)
     args = (c.data_ptr(), o.data_ptr(), rl.TINY_ROWS, 1,
             torch.cuda.current_stream(dev).cuda_stream)
@@ -1568,7 +1406,7 @@ def _rewarp_flows(torch, dev, args_np):
     return seen[0]
 
 
-def k3b_phase(torch, dev, res, args_np, parent=None):
+def k3b_phase(torch, dev, res, args_np):
     """K3b against flow_remap (1e-4) on three fields: the e2e re-warp's
     B*K=12 stack and the K=8 bucket, a smooth flow of a few px pushed 20 px
     off the left border on its first 16 columns and off the bottom on its
@@ -1576,9 +1414,7 @@ def k3b_phase(torch, dev, res, args_np, parent=None):
     rewarp update on the fused problem (4x3x480x640). For each: the warps
     that read their taps unclamped, counted by the kernel and by the
     Python mirror (equal); K3b eager (50 calls) and from a CUDA graph of
-    100 calls in 7 alternating rounds with ``grid_sample`` bicubic and,
-    given ``parent`` (the parent's warp.cu, built apart), with the
-    parent's K3b through ctypes, which must equal K3b bit for bit."""
+    100 calls in 7 alternating rounds with ``grid_sample`` bicubic."""
     from meshrecon_torch.flow import tile_warp
     from meshrecon_torch.flow.remap import flow_remap
 
@@ -1597,7 +1433,6 @@ def k3b_phase(torch, dev, res, args_np, parent=None):
     print(f"rewarp update flows: |u| max {u.abs().max().item():.3f} px, "
           f"|v| max {v.abs().max().item():.3f} px")
     cases.append((f"{B}x{K}x{H}x{W} rewarp flows", img, u, v))
-    parent_k3b = _c_entry(parent, "mr_warp_bicubic") if parent else None
     for label, img, u, v in cases:
         shape = tuple(img.shape)
         px = int(np.prod(shape))
@@ -1630,34 +1465,13 @@ def k3b_phase(torch, dev, res, args_np, parent=None):
 
         def grid_sample():
             return _library_sample(torch, lib_in, grid, "bicubic")
-        timers = {"K3b eager": lambda: _cuda_ms(torch, k3b, 50),
-                  "K3b graph": _graph_timer(torch, k3b),
-                  "grid_sample eager": lambda: _cuda_ms(torch, grid_sample,
-                                                        50),
-                  "grid_sample graph": _graph_timer(torch, grid_sample)}
-        if parent_k3b is not None:
-            p_out = torch.empty_like(img)
-            p_args = (img.data_ptr(), u.data_ptr(), v.data_ptr(),
-                      p_out.data_ptr(), n, H, W) + (
-                () if parent.pre_band else (0, H, 0, H))
-
-            def parent_call():
-                # the stream at call time: a graph captures on its own
-                parent_k3b(*p_args, torch.cuda.current_stream().cuda_stream)
-            parent_call()
-            torch.cuda.synchronize()
-            if not torch.equal(p_out, out):
-                raise AssertionError(f"K3b [{label}]: differs from the "
-                                     "parent's K3b")
-            print(f"warp_bicubic [{label}]: equal to the parent's K3b bit "
-                  "for bit")
-            timers["parent eager"] = lambda: _cuda_ms(torch, parent_call, 50)
-            timers["parent graph"] = _graph_timer(torch, parent_call)
         t = _interleaved(
-            f"K3b [{label}] against grid_sample bicubic"
-            + (" and the parent's K3b" if parent_k3b else "")
-            + f", eager (50 calls) and device (a CUDA graph of "
-            f"{GRAPH_CALLS} calls)", timers)
+            f"K3b [{label}] against grid_sample bicubic, eager (50 calls) "
+            f"and device (a CUDA graph of {GRAPH_CALLS} calls)",
+            {"K3b eager": lambda: _cuda_ms(torch, k3b, 50),
+             "K3b graph": _graph_timer(torch, k3b),
+             "grid_sample eager": lambda: _cuda_ms(torch, grid_sample, 50),
+             "grid_sample graph": _graph_timer(torch, grid_sample)})
         plain_ms = _cuda_ms(torch, lambda: flow_remap(
             torch.stack([u, v], -1), img), 5)
         # the twin's weights and tap order, -fmad=false: 1e-4 on 0..255.
@@ -3589,27 +3403,7 @@ def sharding_phase(torch, dev, args_np, render, k2_k4, k3c):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Chip check of meshrecon_torch on one GPU.")
-    parser.add_argument(
-        "--parent-raster", metavar="RASTER_CU",
-        help="the parent commit's meshrecon_torch/csrc/raster.cu (from an "
-             "unpacked copy of that tree): its K1 and K5, built apart, are "
-             "timed against this tree's in the raster phase")
-    parser.add_argument(
-        "--parent-raster-setup", metavar="RASTER_SETUP_CU",
-        help="the parent commit's meshrecon_torch/csrc/raster_setup.cu: its "
-             "SETUP and BIN, built apart, are timed against this tree's in "
-             "the binning phase and must equal them")
-    parser.add_argument(
-        "--parent-warp", metavar="WARP_CU",
-        help="the parent commit's meshrecon_torch/csrc/warp.cu: its K3b, "
-             "built apart, is timed against this tree's and must equal it "
-             "bit for bit")
-    parser.add_argument(
-        "--parent-roofline", metavar="ROOFLINE_CU",
-        help="the parent commit's meshrecon_torch/csrc/roofline.cu: its R2, "
-             "built apart, is timed against this tree's and must equal it "
-             "bit for bit")
-    args = parser.parse_args(argv)
+    parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -3664,21 +3458,12 @@ def main(argv=None) -> int:
     args_np[0], args_np[1] = state.pack_soup(problems.sphere_soup(64, 128))
     res = Results()
     kernel_phases(torch, dev, res, state.from_numpy(args_np, dev))
-    parent = {name: build_parent(src) for name, src in (
-        ("raster", args.parent_raster), ("warp", args.parent_warp),
-        ("roofline", args.parent_roofline)) if src}
-    if args.parent_raster_setup:
-        parent["raster_setup"] = build_parent_binding(
-            args.parent_raster_setup)
-    binning_phase(torch, dev, res, state.from_numpy(args_np, dev),
-                  parent.get("raster_setup"))
+    binning_phase(torch, dev, res, state.from_numpy(args_np, dev))
     raster_launches = raster_phase(torch, dev, res,
-                                   state.from_numpy(args_np, dev),
-                                   parent.get("raster"))
-    roof, roof_launches = roofline_phase(torch, dev, res,
-                                         parent.get("roofline"))
+                                   state.from_numpy(args_np, dev))
+    roof, roof_launches = roofline_phase(torch, dev, res)
     breakdown_phase(torch, dev, roof["launch_graph_us"])
-    k3b_phase(torch, dev, res, args_np, parent.get("warp"))
+    k3b_phase(torch, dev, res, args_np)
     k6_phase(torch, dev, res)
     band_phase(torch, dev, res, state.from_numpy(args_np, dev))
     torch.cuda.synchronize()

@@ -1,6 +1,9 @@
 // The launch entries of the kernel library as a CPython extension module,
-// _meshrecon_torch_bind: one METH_FASTCALL function an entry of
-// kernels/_build.py's _SIGNATURES, which Kernel.launch calls.
+// _meshrecon_torch_bind: one METH_FASTCALL function an entry of the
+// extern "C" block below, which Kernel.launch calls. That block is the one
+// declaration of an entry outside its .cu file: kernels/_build.py's
+// entry_kinds reads each entry's parameter kinds (P, I, F) from it and
+// checks that MR_ENTRIES names the same entries.
 //
 // The host compiler builds this file against Python's headers alone (no
 // PyTorch or CUDA headers), and it is linked into the same shared library

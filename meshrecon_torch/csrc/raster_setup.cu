@@ -31,8 +31,7 @@
 // runs at 48% of its bytes bound on 16k triangles and 55% on 65k (NVIDIA
 // H100 80GB HBM3, 700 W; PERF.md). A thread a record, which repeats the
 // clip transform, the rotation and the first projection in both threads,
-// ran 11% slower; it and the other launch shapes are in
-// tools/kernel_variants.cu.
+// ran 11% slower, as did the other launch shapes tried (PERF.md §6).
 //
 // BIN (raster_bin_kernel): the tiles' lists without a sort. The groups (a
 // group is a chunk for K1, a superchunk of `supers` chunks for K5) form
@@ -63,8 +62,7 @@
 // phases per block (the coarse level's barriers, staging from L2, the
 // tiles' serial walks). 64 registers, no spills, ~31 KB of shared memory:
 // 4 CTAs of 256 threads an SM, one wave. The block shape and cluster sizes
-// were chosen with tools/kernel_variants.py, which also splits a launch's
-// CTAs phase by phase (the kTimed stamps).
+// were chosen on the card from variants timed against each other.
 //
 // Arithmetic: explicitly rounded float32 and float64 intrinsics in the plain
 // version's order, IEEE division and square root, -fmad=false; Python
@@ -324,17 +322,7 @@ struct BinArgs {
   int* counts;
   int nch, supers, ntx, nty, nbx, nblocks;
   int clusters;  // clusters a camera; cluster c takes blocks c, c + clusters..
-  // kTimed only: kStamps values a CTA (the end of raster_bin_kernel)
-  unsigned long long* stamps;
 };
-
-constexpr int kStamps = 12;
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
 
 // SETUP (the header above): a thread a triangle computes the clip
 // transform, the rotation and A's projection once, then slot 1's record
@@ -493,9 +481,7 @@ __device__ __forceinline__ void cluster_wait() {
 //      __ballot_sync / __popc, so lists[slot, :count] holds the ascending
 //      ids the plain version's sort gives. A tile's count carries from
 //      round to round through `counts`.
-// kTimed: per CTA, the global timer at its start and end and the SM's
-// cycles a phase (tools/kernel_variants.py reads them).
-template <int kWarps, int kMinBlocks, int kTy = kBinTy, bool kTimed = false>
+template <int kWarps, int kMinBlocks, int kTy = kBinTy>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 raster_bin_kernel(const BinArgs a) {
   constexpr int kTiles = kBinTx * kTy;  // tiles a block
@@ -505,19 +491,6 @@ raster_bin_kernel(const BinArgs a) {
   static_assert(kTiles <= 32 && kBatchRuns == 32 && kRun == 32,
                 "a lane a tile, a staged run, a group");
   static_assert(kScan * 32 * kWarps == kRoundRuns, "runs a warp");
-  const unsigned long long t_start = kTimed ? global_ns() : 0ull;
-  const long long c_start = kTimed ? clock64() : 0ll;
-  long long c_coarse = 0, c_staged = 0, c_surv = 0, c_walk = 0, c_mark = 0;
-  long long c_fetch = 0;
-  int survivors_total = 0, walked = 0, blocks_done = 0;
-  // kTimed: the cycles since the last mark, added to `acc`
-  auto lap = [&](long long& acc) {
-    if (kTimed) {
-      const long long now = clock64();
-      acc += now - c_mark;
-      c_mark = now;
-    }
-  };
   __shared__ float4 coarse[kRoundRuns];
   __shared__ float4 fine[kBatchRuns * kRun];  // run s's group i at s*kRun+i
   __shared__ float4 tile_box[kTiles];
@@ -596,7 +569,6 @@ raster_bin_kernel(const BinArgs a) {
     if (r0 > 0) cluster_arrive();
     bool waited = false;
     const int stride = csize * kWarps;
-    if (kTimed) c_mark = clock64();
     // (the first wait comes after a warp's first loads: they overlap the
     // barrier)
     if (vec) {
@@ -645,15 +617,11 @@ raster_bin_kernel(const BinArgs a) {
     if (!waited) cluster_wait();
     if (rank == 0 && threadIdx.x == 0) next_block = csize;
     cluster.sync();  // every CTA's runs have landed in every CTA
-    lap(c_coarse);
     int* counter = cluster.map_shared_rank(&next_block, 0);
     for (int i = rank;;) {  // the i-th block of the cluster's
-      if (kTimed) c_mark = clock64();
       const int blk = set_up(i, r0);
       __syncthreads();
-      lap(c_fetch);
       if (blk < 0) break;  // the same across the CTA
-      if (kTimed) ++blocks_done;
       const int bx = blk % a.nbx, by = blk / a.nbx;
       // the runs that overlap the region, ascending: warp w ballots the
       // stretches w * kScan .. of 32 runs, then places them after the
@@ -685,8 +653,6 @@ raster_bin_kernel(const BinArgs a) {
         at += __popc(keep[q]);
       }
       __syncthreads();
-      lap(c_surv);
-      if (kTimed) survivors_total += ns;
       for (int s0 = 0; s0 < ns; s0 += kBatchRuns) {
         const int sn = min(kBatchRuns, ns - s0);
         if (vec) {  // a thread a quarter run, one float4 a plane
@@ -707,14 +673,12 @@ raster_bin_kernel(const BinArgs a) {
         const int run = lane < sn ? survivors[s0 + lane] : 0;
         const float4 u = coarse[run];
         __syncthreads();
-        lap(c_staged);
         // a warp walks its tiles k = warp, warp + kWarps, ... in turn
         for (int k = warp; k < kTiles; k += kWarps) {
           const float4 t = tile_box[k];
           unsigned runs =
               __ballot_sync(0xffffffffu, lane < sn && overlaps(u, t));
           if (runs == 0u) continue;  // the same across the warp
-          if (kTimed) walked += __popc(runs);
           const int tx = bx * kBinTx + k % kBinTx;
           const int ty = by * kTy + k / kBinTx;
           int* list =
@@ -733,7 +697,6 @@ raster_bin_kernel(const BinArgs a) {
           if (lane == 0) tile_count[k] = n;
         }
         __syncthreads();  // the batch is consumed before the next is staged
-        lap(c_walk);
       }
       if (warp == 0) {
         const int tx = bx * kBinTx + lane % kBinTx;
@@ -744,55 +707,27 @@ raster_bin_kernel(const BinArgs a) {
         }
       }
       // the next block (warp 0's count stores above come before its set-up)
-      if (kTimed) c_mark = clock64();
       if (threadIdx.x == 0) block_s = atomicAdd(counter, 1);
       __syncthreads();
       i = block_s;
-      lap(c_fetch);
     }
   }
   // the first CTA's counter and every CTA's shared memory outlive the last
   // access from the cluster
   cluster.sync();
-  if (kTimed) {
-    __shared__ int walked_s;
-    if (threadIdx.x == 0) walked_s = 0;
-    __syncthreads();
-    if (lane == 0) atomicAdd(&walked_s, walked);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned int smid;
-      asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
-      unsigned long long* st =
-          a.stamps + (blockIdx.y * gridDim.x + blockIdx.x) * kStamps;
-      st[0] = t_start;
-      st[1] = global_ns();
-      st[2] = c_coarse;
-      st[3] = blocks_done;
-      st[4] = c_staged;
-      st[5] = clock64() - c_start;
-      st[6] = survivors_total;
-      st[7] = walked_s;
-      st[8] = smid;
-      st[9] = c_surv;
-      st[10] = c_walk;
-      st[11] = c_fetch;
-    }
-  }
 }
 
-template <int kWarps, int kMinBlocks, int kTy = kBinTy, bool kTimed = false>
+template <int kWarps, int kMinBlocks, int kTy = kBinTy>
 int launch_bin(const float* cbox, const float* tx0, const float* tx1,
                const float* ty0, const float* ty1, int* lists, int* counts,
                int n_cams, int nch, int supers, int ntx, int nty,
-               int cluster, void* stream,
-               unsigned long long* stamps = nullptr) {
+               int cluster, void* stream) {
   if (supers < 1 || nch < 0 || nch % supers != 0 || ntx < 1 || nty < 1 ||
       n_cams < 0 || n_cams > 65535 || cluster < 1 || cluster > 8) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_cams == 0) return 0;
-  auto kernel = raster_bin_kernel<kWarps, kMinBlocks, kTy, kTimed>;
+  auto kernel = raster_bin_kernel<kWarps, kMinBlocks, kTy>;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
@@ -823,7 +758,7 @@ int launch_bin(const float* cbox, const float* tx0, const float* tx1,
   const int clusters = max(1, min((nblocks + cluster - 1) / cluster,
                                   fit / n_cams));
   const BinArgs args = {cbox, tx0, tx1, ty0, ty1, lists, counts, nch, supers,
-                        ntx, nty, nbx, nblocks, clusters, stamps};
+                        ntx, nty, nbx, nblocks, clusters};
   cfg.gridDim = dim3(clusters * cluster, n_cams);
   e = cudaLaunchKernelEx(&cfg, kernel, args);
   const cudaError_t last = cudaGetLastError();
@@ -856,7 +791,6 @@ MR_EXPORT int mr_raster_bin(const float* cbox, const float* tx0,
                             void* stream) {
   // few chunks: smaller clusters (the coarse level is cheap to build);
   // few groups: taller blocks (fewer blocks to walk); chosen on the card
-  // with tools/kernel_variants.py
   const int cluster = nch <= kSmallChunks ? kBinSmallCluster : kBinCluster;
   if (supers > 0 && nch / supers <= kSmallGroups) {
     return launch_bin<kBinWarps, kBinMinBlocks, kBinTy>(

@@ -52,7 +52,7 @@
 // bound (PERF.md §6, "PR 10"), and a warp's tap loads wait on L1. Its
 // first design (a 1-D grid, a 64-bit division a pixel, 16 clamped
 // addresses) was slower, and so was every variant that staged a CTA's
-// window of taps in shared memory (meshrecon_torch/tools/kernel_variants).
+// window of taps in shared memory (PERF.md §6, K3b).
 //
 // Design: the TPU kernels exist because TPU gathers are slow; they fit a
 // per-tile integer base offset and enumerate bounded residual taps, and

@@ -16,6 +16,13 @@ there is no other way to launch. The helpers that are not launches
 ``mr_raster_setup_shape``, and K3b's path
 count ``mr_warp_bicubic_paths``) are called through ctypes.
 
+A launch entry is declared once outside its ``.cu`` file: in bind.cpp's
+``extern "C"`` block, with its name in the binding's ``MR_ENTRIES`` list.
+The binding converts each argument by that declaration's parameter type;
+:func:`entry_kinds` reads the same block for Python (the entry names a
+:class:`Kernel` may take, the CPU tests' stub library). Adding a kernel
+touches its ``.cu`` file, bind.cpp and its wrapper module.
+
 Every kernel's wrapper owns a :class:`Kernel`, which launches through the
 extension module on ``torch.cuda.current_stream()``, raises on a non-zero
 CUDA status, and counts its launches. Its launch path is one call into the
@@ -35,6 +42,7 @@ import hashlib
 import importlib.machinery
 import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import sysconfig
@@ -62,33 +70,38 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
-# The launch entries (csrc/bind.cpp declares each with these parameter
-# types): argument kinds, P = pointer (or stream), I = int, F = float. The
-# stream is always the last argument.
-_SIGNATURES = {
-    "mr_raster_tiles": "PPPPPPPPPP" + "IIIIIIIII" + "P",
-    "mr_raster_tiles2": "PPPPPPPPPPP" + "IIIIIIII" + "P",
-    "mr_raster_setup": "PPPPP" + "IIII" + "P",
-    "mr_raster_bin": "PPPPPPP" + "IIIII" + "P",
-    "mr_sample_shadow_frame": "PPPPPP" + "IIIII" + "P",
-    "mr_warp_bilinear": "PPPP" + "IIIIIII" + "P",
-    "mr_warp_bicubic": "PPPP" + "IIIIIII" + "P",
-    "mr_sample_bilinear_masked": "PPPPP" + "III" + "P",
-    # the schedule's (a_k, b_k) pairs are a host pointer (P) before "IF"
-    "mr_hs_sweep": "PPPP" + "PPPP" + "PPPP" + "P" + "IF" + "III" + "P",
-    "mr_hs_jacobi_fields": "PPP" + "PP" + "PP" + "IF" + "III" + "P",
-    "mr_hs_divide": "PPP" + "I" + "P",
-    "mr_roofline_copy": "PP" + "I" + "P",
-    "mr_roofline_fma": "PP" + "II" + "P",
-    "mr_roofline_tiny": "PP" + "II" + "P",
-    "mr_gn_sobel": "PPP" + "III" + "P",
-    "mr_gn_walk": "PPPPPPPP" + "PPP" + "I" * 11 + "FFF" + "P",
-    "mr_gn_exit": "PP" + "PP" + "IIII" + "P",
-    "mr_gn_finish": "PPPPPPPP" + "PPPP" + "PPP" + "I" * 10 + "FFFF" + "P",
-    "mr_sweep_proj": "PPPPP" + "PPP" + "IIIII" + "P",
-    "mr_sweep_cost": "PPPPP" + "PP" + "IIII" + "P",
-    "mr_sweep_best": "PPP" + "PP" + "IIII" + "P",
-}
+
+@functools.lru_cache(maxsize=None)
+def entry_kinds(text: str | None = None) -> dict[str, str]:
+    """Each launch entry's argument kinds, in the order of the ``extern
+    "C"`` block of csrc/bind.cpp (or of ``text``, a source of that form),
+    the one declaration of an entry outside its ``.cu`` file: entry name ->
+    a letter a parameter, P = pointer (the stream, always last, too), I =
+    int, F = float. Raises ValueError where the block and the binding's
+    ``MR_ENTRIES`` list name different entries, or a parameter is none of
+    the three. Parsed once a text."""
+    if text is None:
+        text = BIND_SOURCE.read_text()
+    block = re.search(r'extern "C" \{(.*?)\n\}', text, re.S)
+    listed = re.search(r"#define MR_ENTRIES\(X\)((?:.*\\\n)*.*)", text)
+    if block is None or listed is None:
+        raise ValueError("csrc/bind.cpp: no extern \"C\" block or no "
+                         "MR_ENTRIES list")
+    kinds = {}
+    for name, params in re.findall(r"int\s+(\w+)\(([^)]*)\);",
+                                   block.group(1)):
+        letters = [p.strip() for p in params.split(",")]
+        if not set(letters) <= {"P", "I", "F"}:
+            raise ValueError(f"csrc/bind.cpp: {name} takes ({params}); each "
+                             "parameter must be P, I or F")
+        kinds[name] = "".join(letters)
+    names = re.findall(r"X\((\w+)\)", listed.group(1))
+    if set(kinds) != set(names):
+        raise ValueError(
+            "csrc/bind.cpp: the extern \"C\" block and MR_ENTRIES differ: "
+            f"declared only {sorted(set(kinds) - set(names))}, listed only "
+            f"{sorted(set(names) - set(kinds))}")
+    return kinds
 
 
 @dataclass
@@ -267,7 +280,7 @@ class Kernel:
     """
 
     def __init__(self, name: str, entry: str, source: str, replaces: str):
-        if entry not in _SIGNATURES:
+        if entry not in entry_kinds():
             raise ValueError(f"unknown entry point {entry}")
         self.name = name
         self.entry = entry

@@ -3,15 +3,17 @@ a stub C library in place of the kernels.
 
 The binding is built by the host-compiler command of the real build
 (``_build.bind_command``: g++ and Python's headers, no torch or CUDA
-headers) and linked with a stub that defines every entry of
-``_build._SIGNATURES`` with those parameter types and records the
-arguments it receives; ``_build.import_binding`` imports the result, once
-for the module. Skipped only where g++ or Python.h is missing. The card's
-launches through the real library are checked in
-test_torch_kernels_cuda.py.
+headers) and linked with a stub that defines every entry that bind.cpp
+declares (``_build.entry_kinds``) with those parameter types and records
+the arguments it receives; ``_build.import_binding`` imports the result,
+once for the module. Skipped only where g++ or Python.h is missing. The
+card's launches through the real library are checked in
+test_torch_kernels_cuda.py. The declarations themselves are held to the
+kernels' definitions (``csrc/*.cu``) and to the wrappers' Kernels here.
 """
 
 import ctypes
+import re
 import shutil
 import subprocess
 import sysconfig
@@ -22,7 +24,7 @@ import torch
 
 from meshrecon_torch.kernels import _build
 
-ENTRIES = sorted(_build._SIGNATURES)
+ENTRIES = sorted(_build.entry_kinds())
 C_TYPES = {"P": "void*", "I": "int", "F": "float"}
 MAX_ARGS = 32
 STREAM = 0xFFFF_8000_1234_5670  # above 2**63: no bit may be cut
@@ -37,7 +39,7 @@ def _stub_source() -> str:
              f"long long stub_ints[{MAX_ARGS}];",
              f"double stub_floats[{MAX_ARGS}];",
              "const char* stub_name;", "int stub_nargs;", "int stub_code;"]
-    for name, kinds in _build._SIGNATURES.items():
+    for name, kinds in _build.entry_kinds().items():
         params = ", ".join(f"{C_TYPES[k]} a{i}" for i, k in enumerate(kinds))
         body = [f'stub_name = "{name}";', f"stub_nargs = {len(kinds)};"]
         for i, k in enumerate(kinds):
@@ -47,6 +49,59 @@ def _stub_source() -> str:
                      "return stub_code; }")
     lines.append("}")
     return "\n".join(lines)
+
+
+def _kind(param):
+    """P, I or F for a C parameter (``const float* x``, ``void* stream``,
+    ``int n``, ``float a``); "?" for any other."""
+    words = [w for w in param.replace("*", " * ").split() if w != "const"]
+    if "*" in words:
+        return "P"
+    return {"int": "I", "float": "F"}.get(" ".join(words[:-1]), "?")
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_each_entry_is_defined_once_in_csrc(entry):
+    """Exactly one csrc/*.cu defines each entry that bind.cpp declares,
+    with the declared parameters' kinds in order. ``extern "C"`` links by
+    name alone, so nothing else finds a wrong count or type, or an entry
+    declared and never defined, before the card's link or launch."""
+    found = [(src.name, params) for src in sorted(_build.CSRC.glob("*.cu"))
+             for params in re.findall(rf"MR_EXPORT int {entry}\(([^)]*)\)",
+                                      src.read_text())]
+    assert len(found) == 1, found
+    kinds = "".join(_kind(p) for p in found[0][1].split(","))
+    assert kinds == _build.entry_kinds()[entry], found[0]
+
+
+def _wrapper_kernels():
+    """The Kernels the wrapper modules register when imported, by name
+    (every worker collects the same cases in the same order)."""
+    from meshrecon_torch.depth import plane_sweep, triangulate  # noqa: F401
+    from meshrecon_torch.flow import jacobi, tile_warp  # noqa: F401
+    from meshrecon_torch.raster import binned  # noqa: F401
+    from meshrecon_torch.tools import roofline  # noqa: F401
+    return sorted(_build.all_kernels(), key=lambda k: k.name)
+
+
+@pytest.mark.parametrize("kernel", _wrapper_kernels(), ids=lambda k: k.name)
+def test_every_kernel_names_a_declared_entry(kernel):
+    """Each wrapper's Kernel launches an entry that bind.cpp declares, and
+    the source it names defines that entry."""
+    assert kernel.entry in _build.entry_kinds()
+    source = _build.CSRC.parent.parent / kernel.source
+    assert f"MR_EXPORT int {kernel.entry}(" in source.read_text()
+
+
+def test_a_declaration_missing_from_the_list_raises():
+    """bind.cpp's extern "C" block and its MR_ENTRIES list must name the
+    same entries: a text whose list drops one raises ValueError naming
+    it."""
+    text = _build.BIND_SOURCE.read_text()
+    line = re.search(r"\n *X\(mr_sweep_best\)[^\n]*", text).group(0)
+    with pytest.raises(ValueError, match=r"declared only \['mr_sweep_best'\]"
+                       r", listed only \[\]"):
+        _build.entry_kinds(text.replace(line, ""))
 
 
 def _run(cmd):
@@ -116,7 +171,7 @@ def test_arguments_arrive_in_order_with_the_stream_last(bound, entry):
     the stream intact, None as NULL, a tensor as its data_ptr(), ints and
     floats exactly; the entry's return value comes back."""
     ext, cdll = bound
-    kinds = _build._SIGNATURES[entry]
+    kinds = _build.entry_kinds()[entry]
     tensor = torch.zeros(4)
     args, want = _arguments(kinds, tensor)
     ctypes.c_int.in_dll(cdll, "stub_code").value = 700 + len(kinds)
@@ -131,7 +186,7 @@ def test_a_wrong_count_or_type_raises(bound, entry):
     argument); an int past int32: OverflowError. None reaches the entry."""
     ext, cdll = bound
     fn = getattr(ext, entry)
-    kinds = _build._SIGNATURES[entry]
+    kinds = _build.entry_kinds()[entry]
     args, _ = _arguments(kinds, torch.zeros(4))
     ctypes.c_int.in_dll(cdll, "stub_nargs").value = -1
     with pytest.raises(TypeError, match=f"{entry} takes {len(kinds)}"):

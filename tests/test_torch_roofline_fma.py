@@ -67,34 +67,3 @@ def test_shape_refuses(n, sms):
     with pytest.raises(ValueError):
         roofline.fma_shape(n, sms)
 
-
-def test_kernel_variants_needs_the_card(monkeypatch):
-    """The variants tool (R2's and K3b's rejected designs against the kept
-    kernels) raises without CUDA rather than timing anything on the host,
-    and its source declares the two entries it binds."""
-    from meshrecon_torch.tools import kernel_variants
-
-    monkeypatch.setattr(kernel_variants.torch.cuda, "is_available",
-                        lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        kernel_variants.main([])
-    src = kernel_variants.SOURCE.read_text()
-    assert "MR_EXPORT int mr_variant_k3b(" in src
-    assert "MR_EXPORT int mr_variant_r2(" in src
-
-
-def test_kernel_variants_refuses_unknown_kernels():
-    """--kernels takes the tool's sections only (k3b, r2, setup, bin,
-    bin_split), and says so before it looks for the card; the variants'
-    source declares the binning entries it binds."""
-    from meshrecon_torch.tools import kernel_variants
-
-    with pytest.raises(SystemExit):
-        kernel_variants.main(["--kernels", "setup,sort"])
-    assert kernel_variants.KERNELS == ("k3b", "r2", "setup", "bin",
-                                       "bin_split")
-    src = kernel_variants.SOURCE.read_text()
-    for entry in ("mr_variant_setup", "mr_variant_bin",
-                  "mr_variant_bin_timed"):
-        assert f"MR_EXPORT int {entry}(" in src
-    assert '#include "raster_setup.cu"' in src
