@@ -134,7 +134,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
    card inputs, both timed, then each SWEEP kernel at the middle plane
    against its plain version (``SweepWindow.fields``, ``sums``,
    ``take_plane``), bound 0, with its ms, the plain version's and its
-   bytes bound, and a whole plane's ms.
+   bytes bound, and a whole plane's ms. Then the normals phase
+   (``normals_phase``) on the inputs of the default reconstruction's
+   largest normal estimation (B=4, 480x640, its padded centres) and on its
+   first frame alone (B=1, the single-frame path): the estimation on the
+   card (NORMALS_COLS, NORMALS_FINISH) bit for bit against the eager path
+   on the same card inputs (``normals_eager``), each kernel's ms against
+   its bytes bound with the eager path's ms beside it, the estimation's ms
+   eager and from a CUDA graph of 100 calls, its host us a call, and its
+   launches (2, one a kernel).
 9. The video entry points, three phases, each with its wall seconds:
    ``video``: a 640x480 MJPG (koule-tr's 31 frames) whose B, G and R
    planes are the synthetic sphere frames of seeds 3, 4 and 5 made on
@@ -2240,6 +2248,122 @@ def sweep_phase(torch, dev, res, captured):
     print(f"phase sweep: {time.perf_counter() - t_phase:.1f} s")
 
 
+def _keep_largest_normals(store):
+    """``make`` for :func:`_wrap`: the normal estimation whose point4 is
+    the largest is kept in ``store`` (its inputs, as the update hands them
+    over)."""
+
+    def make(original):
+        def call(*args, **kwargs):
+            if not store or args[0].numel() > store["args"][0].numel():
+                store["args"] = args
+            return original(*args, **kwargs)
+        return call
+
+    return make
+
+
+# The normals' float32 operations a pixel (depth/normals.py, counted from
+# the eager ops at radius 10, a division, square root or transcendental
+# counted as one): NORMALS_COLS's (p / w * vmask, the six products, the
+# vertical tree of each moment), NORMALS_FINISH's (the horizontal tree,
+# the covariance, the eigenvector, pdf^(1/k), the scale) and its share a
+# real centre (d, ndot and the vote)
+NORMALS_COLS_OPS = 72
+NORMALS_FINISH_OPS, NORMALS_CENTRE_OPS = 170, 10
+
+
+def _normals_work(kind, b, h, w, n_real):
+    """(bytes, float32 operations) of one NORMALS kernel: each input read
+    once, each output written once."""
+    px = b * h * w
+    if kind == "cols":  # point4 and valid in, 10 column sums out
+        return px * (16 + 1 + 40), px * NORMALS_COLS_OPS
+    # the sums, point4, valid and pdf in, the normal out
+    return (px * (40 + 16 + 1 + 4 + 12),
+            px * NORMALS_FINISH_OPS + h * w * n_real * NORMALS_CENTRE_OPS)
+
+
+def normals_phase(torch, dev, res, captured):
+    """The normals' kernels (csrc/normals.cu) on the default
+    reconstruction's largest estimation (B=4, 480x640, its padded camera
+    centres) and on its first frame alone (B=1): the estimation on the
+    card bit for bit against the eager path on the same card inputs
+    (``normals_eager``); each kernel alone (its launch on prepared inputs)
+    against its bytes bound, bound 0, with the eager path's ms beside it;
+    the estimation's ms eager and from a CUDA graph of 100 calls, its host
+    us a call and its launches."""
+    from meshrecon_torch.depth import normals as nm
+    from meshrecon_torch.tools import roofline
+
+    t_phase = time.perf_counter()
+    if "args" not in captured:
+        raise AssertionError("normals: the default reconstruction estimated "
+                             "no normals")
+    args4 = [a.contiguous() for a in captured["args"]]
+    for args in (args4, [a[:1] for a in args4]):
+        p4, valid, pdf, ctr, cv, ns = args
+        b, h, w = valid.shape
+        c = ctr.shape[1]
+        n_real = int(cv.sum())
+        label = (f"{b}x{h}x{w}, {c} centres, real {cv.sum(1).tolist()}, "
+                 f"n_side {ns.tolist()}")
+
+        def card():
+            return nm.estimate_normals_batched(*args)
+
+        before = [k.launches for k in (nm.NORMALS_COLS, nm.NORMALS_FINISH)]
+        out = card()
+        launches = [k.launches - n for k, n in zip(
+            (nm.NORMALS_COLS, nm.NORMALS_FINISH), before)]
+        ref = nm.normals_eager(*args)
+        torch.cuda.synchronize()
+        err = _bits_err(torch, out, ref)
+        eager_ms = _cuda_ms(torch, lambda: nm.normals_eager(*args), 3)
+        sums = torch.empty((b, 10, h, w), device=dev)
+        got = torch.empty_like(ref)
+        if ns.dtype not in nm._SIDE_KINDS:
+            ns = args[5] = ns.float()
+        kind = nm._SIDE_KINDS[ns.dtype]
+
+        def cols():
+            nm.NORMALS_COLS.launch(p4, valid, sums, 4 * h * w, h * w, b, h,
+                                   w, 10)
+
+        def finish():
+            nm.NORMALS_FINISH.launch(sums, p4, valid, pdf, ctr, cv, ns, got,
+                                     4 * h * w, h * w, h * w, kind, b, c, h,
+                                     w, 10)
+
+        cols()
+        finish()
+        torch.cuda.synchronize()
+        err_k = _bits_err(torch, got, ref)
+        for kernel, fn, work in ((nm.NORMALS_COLS, cols, "cols"),
+                                 (nm.NORMALS_FINISH, finish, "finish")):
+            res.add(kernel, label, err_k, 0.0, _cuda_ms(torch, fn, 50),
+                    eager_ms, work=_normals_work(work, b, h, w, n_real))
+        wrapper_ms = _cuda_ms(torch, card, 50)
+        graph_ms = _graph_ms(torch, card)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            card()
+        host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        bound_ms = sum(roofline.bound(*_normals_work(k, b, h, w, n_real))[0]
+                       for k in ("cols", "finish"))
+        print(f"normals [{label}]: bitwise the eager path (max err {err}); "
+              f"launches {launches}; the estimation {wrapper_ms:.4f} ms, "
+              f"graph {graph_ms:.4f} ms, bound {bound_ms:.4f} ms, host "
+              f"{host_us:.1f} us a call; eager {eager_ms:.3f} ms")
+        if err or launches != [1, 1]:
+            raise AssertionError(f"normals [{label}]: error {err}, "
+                                 f"launches {launches}")
+        del sums, got, out, ref
+    print(f"phase normals: {time.perf_counter() - t_phase:.1f} s")
+
+
 def _swept_ndc(out, mains):
     """NDC depth of the swept points: point4 projected by the main camera."""
     p = np.einsum("bij,bhwj->bhwi", mains.astype(np.float64),
@@ -3420,7 +3544,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from meshrecon_torch import problems, state
-    from meshrecon_torch.depth import plane_sweep, triangulate
+    from meshrecon_torch.depth import normals, plane_sweep, triangulate
     from meshrecon_torch.flow import jacobi, tile_warp
     from meshrecon_torch.kernels import all_kernels, library
     from meshrecon_torch.meshing import native
@@ -3454,6 +3578,7 @@ def main(argv=None) -> int:
           triangulate.GN_FINISH)  # every flow update's triangulation
     SWEEP = (plane_sweep.SWEEP_PROJ, plane_sweep.SWEEP_COST,
              plane_sweep.SWEEP_BEST)  # every plane of the sweep, with K3c
+    NORMALS = (normals.NORMALS_COLS, normals.NORMALS_FINISH)  # both updates
     args_np = list(problems.fused_problem(B, K, H, W, seed=SEED))
     args_np[0], args_np[1] = state.pack_soup(problems.sphere_soup(64, 128))
     res = Results()
@@ -3489,18 +3614,22 @@ def main(argv=None) -> int:
     sweep_args = sweep_problem(torch, dev)
     k3c_phase(torch, dev, res, state.from_numpy(sweep_args, dev))
     run_sweep(torch, dev, sweep_args)
-    captured, swept = {}, {}
+    captured, swept, estimated = {}, {}, {}
     fused = meshrecon_torch.pipeline.fused
     with _wrap(fused, "triangulate_pixels_batched",
                _keep_largest(torch, captured)), _wrap(
                    fused, "plane_sweep_depth_batched",
-                   _keep_largest_sweep(swept)):
+                   _keep_largest_sweep(swept)), _wrap(
+                       fused, "estimate_normals_batched",
+                       _keep_largest_normals(estimated)):
         default = run_e2e(torch, dev, "default", [],
-                          (*render, K2, K3, K3C, *SWEEP, K4, *GN))
+                          (*render, K2, K3, K3C, *SWEEP, K4, *GN, *NORMALS))
     gn_phase(torch, dev, res, captured)
     del captured
     sweep_phase(torch, dev, res, swept)
     del swept
+    normals_phase(torch, dev, res, estimated)
+    del estimated
     rewarp = run_e2e(torch, dev, "rewarp", ["--variance-mode", "rewarp"],
                      (*render, K2, K3, K3C, *SWEEP, K4, K3B, *GN))
     run_e2e(torch, dev, "farneback", ["-f"],
@@ -3518,7 +3647,8 @@ def main(argv=None) -> int:
 
     # each kernel's launches on the path it serves
     path_launches = {k.name: default[k.name]
-                     for k in (*render, K2, K3, K3C, *SWEEP, K4, *GN)}
+                     for k in (*render, K2, K3, K3C, *SWEEP, K4, *GN,
+                               *NORMALS)}
     path_launches[K3B.name] = rewarp[K3B.name]
     path_launches[K6.name] = solver_launches[K6.name]
     for k in (binned.K5A, binned.K5B):
@@ -3526,8 +3656,8 @@ def main(argv=None) -> int:
     for k in (roofline.R1, roofline.R2, roofline.R3, roofline.R4):
         path_launches[k.name] = roof_launches[k.name]
     print("launches: SETUP, BIN, K1, K2, K3, K3c, SWEEP_PROJ, SWEEP_COST, "
-          "SWEEP_BEST, K4, GN_SOBEL, GN_WALK, GN_EXIT, GN_FINISH from the "
-          "default reconstruction, "
+          "SWEEP_BEST, K4, GN_SOBEL, GN_WALK, GN_EXIT, GN_FINISH, "
+          "NORMALS_COLS, NORMALS_FINISH from the default reconstruction, "
           "K3b from the rewarp reconstruction, K6 from the solver check, "
           "K5a and K5b from the raster sweep tool, R1-R4 from the roofline "
           "tool (R3 and R4 with its graph replays)")

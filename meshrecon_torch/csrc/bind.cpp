@@ -60,6 +60,9 @@ int mr_gn_finish(P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
 int mr_sweep_proj(P, P, P, P, P, P, P, P, I, I, I, I, I, P);
 int mr_sweep_cost(P, P, P, P, P, P, P, I, I, I, I, P);
 int mr_sweep_best(P, P, P, P, P, I, I, I, I, P);
+int mr_normals_cols(P, P, P, I, I, I, I, I, I, P);
+int mr_normals_finish(P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                      P);
 }
 
 #define MR_ENTRIES(X)                                                        \
@@ -83,7 +86,9 @@ int mr_sweep_best(P, P, P, P, P, I, I, I, I, P);
   X(mr_gn_finish)                                                            \
   X(mr_sweep_proj)                                                           \
   X(mr_sweep_cost)                                                           \
-  X(mr_sweep_best)
+  X(mr_sweep_best)                                                           \
+  X(mr_normals_cols)                                                         \
+  X(mr_normals_finish)
 
 namespace {
 

@@ -8,6 +8,13 @@ inverse-distance vote and scaled by pdf^(1/K).
 The box sums keep the reference's doubling shifted adds: a float32
 cumulative-sum integral image would lose the p p^T moments' precision at
 640x480.
+
+On the CPU :func:`estimate_normals_batched` is eager ops (the plain
+version). On CUDA it is two kernels (``csrc/normals.cu``): NORMALS_COLS
+forms the moments and their vertical window sums, NORMALS_FINISH the
+horizontal sums and everything after them; no eager op runs, the outputs
+are the eager path's bit for bit, and each estimation counts
+``normals_kernel``.
 """
 
 from __future__ import annotations
@@ -15,6 +22,22 @@ from __future__ import annotations
 import math
 
 import torch
+
+from meshrecon_torch.kernels._build import Kernel
+from meshrecon_torch.utils.profiling import count
+
+_NORMALS_SOURCE = "meshrecon_torch/csrc/normals.cu"
+_NORMALS_REPLACES = ("meshrecon/depth/normals.py:157 (estimate_normals; "
+                     "XLA-fused)")
+NORMALS_COLS = Kernel("normals_cols", "mr_normals_cols", _NORMALS_SOURCE,
+                      _NORMALS_REPLACES)
+NORMALS_FINISH = Kernel("normals_finish", "mr_normals_finish",
+                        _NORMALS_SOURCE, _NORMALS_REPLACES)
+# the largest radius the kernels take: NORMALS_COLS holds a column's 64
+# rows, a strip and its reach of 2r, in registers (csrc/normals.cu)
+CARD_MAX_RADIUS = 31
+# n_side's dtypes NORMALS_FINISH reads as they are (its n_side_kind)
+_SIDE_KINDS = {torch.float32: 0, torch.int32: 1, torch.int64: 2}
 
 
 def _shift(a, s: int, axis: int):
@@ -120,8 +143,19 @@ def estimate_normals_batched(point4, valid, pdf, camera_centers,
 
     point4 (B, H, W, 4); valid (B, H, W) bool; pdf (B, H, W);
     camera_centers (B, C, 3) (main camera first); centers_valid (B, C);
-    n_side (B,) real side counts. Returns (B, H, W, 3) float32.
+    n_side (B,) real side counts. Returns (B, H, W, 3) float32. On CUDA
+    the NORMALS kernels (:func:`normals_on_card`), elsewhere
+    :func:`normals_eager`.
     """
+    fn = normals_on_card if point4.is_cuda else normals_eager
+    return fn(point4, valid, pdf, camera_centers, centers_valid, n_side,
+              radius)
+
+
+def normals_eager(point4, valid, pdf, camera_centers, centers_valid,
+                  n_side, radius: int = 10):
+    """The plain version of :func:`estimate_normals_batched`, its
+    arguments: eager ops on any device."""
     point4 = point4.to(torch.float32)
     w4 = point4[..., 3]
     w4 = torch.where(w4.abs() < 1e-20, 1.0, w4)
@@ -185,6 +219,67 @@ def estimate_normals_batched(point4, valid, pdf, camera_centers,
     # non-finite normals from degenerate covariances would poison every
     # global reduction downstream
     return torch.where(torch.isfinite(out), out, 0.0)
+
+
+def _frames(t: torch.Tensor):
+    """(t, the elements from one of its frames to the next): t as it is
+    where each frame (t[i]) is contiguous, else a contiguous copy."""
+    frame = math.prod(t.shape[1:])
+    if t.is_contiguous():
+        return t, frame
+    if t[0].is_contiguous():
+        return t, t.stride(0)
+    return t.contiguous(), frame
+
+
+def normals_on_card(point4, valid, pdf, camera_centers, centers_valid,
+                    n_side, radius: int = 10):
+    """:func:`estimate_normals_batched` on CUDA tensors, its arguments:
+    NORMALS_COLS into a (B, 10, H, W) scratch, then NORMALS_FINISH, counted
+    (``normals_kernel``). A frame of point4, valid or pdf may lie at any
+    stride from the next (a band of rows); valid and centers_valid are
+    bool, pdf float32, n_side float32, int32 or int64 as it is (another
+    type converted). Raises ValueError on inputs it does not take."""
+    name = "estimate_normals_batched"
+    b, h, w = valid.shape
+    c = camera_centers.shape[1] if camera_centers.dim() == 3 else -1
+    if (point4.shape != (b, h, w, 4) or pdf.shape != (b, h, w)
+            or camera_centers.shape != (b, c, 3)
+            or centers_valid.shape != (b, c) or n_side.shape != (b,)):
+        raise ValueError(f"{name}: the inputs' shapes disagree")
+    if not 0 <= radius <= CARD_MAX_RADIUS:
+        raise ValueError(f"{name}: radius {radius} outside [0, "
+                         f"{CARD_MAX_RADIUS}] on the card")
+    if n_side.dtype not in _SIDE_KINDS:
+        n_side = n_side.to(torch.float32)
+    point4 = point4.to(torch.float32)
+    centers = camera_centers.to(torch.float32)
+    dev = point4.device
+    for i, (t, dtype) in enumerate((
+            (valid, torch.bool), (pdf, torch.float32),
+            (centers, torch.float32), (centers_valid, torch.bool),
+            (n_side, n_side.dtype))):
+        if t.device != dev or t.dtype is not dtype:
+            raise ValueError(f"{name}: input {i + 1} is {t.dtype} on "
+                             f"{t.device}, expected {dtype} on {dev}")
+    out = torch.empty((b, h, w, 3), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    point4, p4_stride = _frames(point4)
+    if point4.data_ptr() % 16 or p4_stride % 4:
+        raise ValueError(f"{name}: point4's frames must start 16-byte "
+                         "aligned (the kernels read a point as a float4)")
+    valid, valid_stride = _frames(valid)
+    pdf, pdf_stride = _frames(pdf)
+    sums = torch.empty((b, 10, h, w), dtype=torch.float32, device=dev)
+    NORMALS_COLS.launch(point4, valid, sums, p4_stride, valid_stride, b, h,
+                        w, radius)
+    NORMALS_FINISH.launch(sums, point4, valid, pdf, centers.contiguous(),
+                          centers_valid.contiguous(), n_side.contiguous(),
+                          out, p4_stride, valid_stride, pdf_stride,
+                          _SIDE_KINDS[n_side.dtype], b, c, h, w, radius)
+    count("normals_kernel")
+    return out
 
 
 def estimate_normals(point4, valid, pdf, camera_centers, centers_valid,

@@ -23,8 +23,9 @@ the calls of the dense update that wait for the device, each made through
 :func:`host_read`, :func:`host_values` or :func:`to_device`;
 ``gn_sweeps`` counts Gauss-Newton sweeps, and on CUDA ``gn_kernel`` the
 triangulations that ran the GN kernels and ``gn_steps`` the pixel-steps
-they took, and ``sweep_kernel`` the plane-sweep depth planes that ran the
-SWEEP kernels.
+they took, ``sweep_kernel`` the plane-sweep depth planes that ran the
+SWEEP kernels, and ``normals_kernel`` the normal estimations that ran the
+NORMALS kernels.
 """
 
 from __future__ import annotations

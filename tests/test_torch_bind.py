@@ -77,7 +77,8 @@ def test_each_entry_is_defined_once_in_csrc(entry):
 def _wrapper_kernels():
     """The Kernels the wrapper modules register when imported, by name
     (every worker collects the same cases in the same order)."""
-    from meshrecon_torch.depth import plane_sweep, triangulate  # noqa: F401
+    from meshrecon_torch.depth import (  # noqa: F401
+        normals, plane_sweep, triangulate)
     from meshrecon_torch.flow import jacobi, tile_warp  # noqa: F401
     from meshrecon_torch.raster import binned  # noqa: F401
     from meshrecon_torch.tools import roofline  # noqa: F401

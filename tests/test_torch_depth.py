@@ -177,6 +177,58 @@ def test_window_sums_match_jax():
                                rtol=1e-6, atol=1e-4)
 
 
+def _normals_inputs(seed=5):
+    planes, main, sides, sv, depth = _tri_problem(seed=seed)
+    tri = jt.triangulate_pixels(planes, main, sides, sv, depth,
+                                sampling="taylor")
+    centers = np.array([[0, 0, 0], [1.0, 0, 0], [1.0, 0.3, 0]], np.float32)
+    return [_t(np.asarray(tri[k])[None]) for k in ("point4", "valid", "pdf")
+            ] + [_t(centers[None]), _t(np.array([[True, True, False]])),
+                 _t(np.array([2], np.int32))]
+
+
+def test_normals_on_the_cpu_take_the_plain_path(monkeypatch):
+    """CPU tensors run the eager ops (``normals_eager``) and launch no
+    NORMALS kernel: with the card path patched to raise, the result is
+    ``normals_eager``'s and no ``normals_kernel`` is counted."""
+    from meshrecon_torch.utils.profiling import StageTimer
+
+    def card(*args, **kwargs):
+        raise AssertionError("the NORMALS kernels ran on the CPU")
+
+    monkeypatch.setattr(tn, "normals_on_card", card)
+    args = _normals_inputs()
+    t = StageTimer()
+    with t.stage("normals"):
+        out = tn.estimate_normals_batched(*args)
+    assert "normals_kernel" not in t.counters
+    assert torch.equal(out, tn.normals_eager(*args))
+    assert (out != 0).any()
+
+
+@pytest.mark.parametrize("arg,bad", [
+    (0, lambda t: t[..., :3]), (1, lambda t: t.float()),
+    (2, lambda t: t.double()), (3, lambda t: t[:, :2]),
+    (4, lambda t: t[:, :2]), (5, lambda t: t.repeat(2)),
+    (3, lambda t: t.to("meta"))])
+def test_normals_on_card_refuses_what_it_does_not_take(arg, bad):
+    """The card path's wrapper checks shapes, types and devices before it
+    launches anything (so it raises here, with no library built)."""
+    args = _normals_inputs()
+    args[arg] = bad(args[arg])
+    with pytest.raises(ValueError):
+        tn.normals_on_card(*args)
+
+
+@pytest.mark.parametrize("radius", [-1, tn.CARD_MAX_RADIUS + 1])
+def test_normals_on_card_refuses_a_radius_it_cannot_hold(radius):
+    """The card's kernels take 0 <= radius <= CARD_MAX_RADIUS (NORMALS_COLS
+    holds 64 rows of a column in registers): ValueError outside it, before
+    any launch."""
+    with pytest.raises(ValueError, match="radius"):
+        tn.normals_on_card(*_normals_inputs(), radius=radius)
+
+
 def test_estimate_normals_matches_jax():
     planes, main, sides, sv, depth = _tri_problem(seed=5)
     tri = jt.triangulate_pixels(planes, main, sides, sv, depth,

@@ -37,7 +37,12 @@ never runs the eager loop and reads the host once. The plane sweep's
 kernels (SWEEP_PROJ, SWEEP_COST, SWEEP_BEST around K3c) bitwise against
 the eager planes on the card (``SweepWindow``), at c4's and the sweep
 update's shapes, side counts that are not multiples of 4, and a window in
-shards; the card path runs no eager op a plane.
+shards; the card path runs no eager op a plane. The normals' kernels
+(NORMALS_COLS, NORMALS_FINISH) bitwise against the eager normals on the
+card (``normals_eager``) at koule's shape and B=1, bands of rows (one
+shorter than the window), radius 0, 3 and 10, the fallback and isotropic
+windows, non-finite points and junk in the padded centres; an estimation
+dispatches no torch operator that computes.
 """
 
 import ctypes
@@ -1616,3 +1621,159 @@ def test_sweep_kernels_refuse_what_they_do_not_take(dev):
     assert ps.SWEEP_BEST.launches == before
     ps.sweep_best(num, den, zs, 3, st, pending)
     assert ps.SWEEP_BEST.launches == before + 1
+
+
+def _normals_batch(dev, b, h, w, c, n_real, seed, odd=False):
+    """estimate_normals_batched's inputs on a seeded wavy surface:
+    (point4, valid, pdf, centers, centers_valid, n_side int32). Each
+    point's w in [0.5, 2] (point4 holds p * w, w); 80% valid, a block of
+    sparse pixels (windows of fewer than 3 points: the fallback) and a
+    corner patch of one repeated point (an isotropic window: +z); pdf in
+    [-0.1, 1] with exact zeros; ``n_real`` real camera centres, the rest
+    padded (zeros, or junk with ``odd``); side counts 8, 1, 0, 3 cycled
+    (1 and 0: the unrooted pdf). ``odd`` adds points with w 0 and 1e-25,
+    infinite and NaN coordinates, valid and not."""
+    rng = np.random.default_rng(seed)
+    rows, cols = np.mgrid[0:h, 0:w].astype(np.float32)
+    x, y = (cols - w / 2) / 320, (rows - h / 2) / 320
+    p = np.stack([x, y, 2.0 + 0.3 * np.sin(3 * x + 2 * y)], -1)
+    p = p[None] + rng.normal(0.0, 2e-3, (b, h, w, 3))
+    wt = rng.uniform(0.5, 2.0, (b, h, w, 1))
+    point4 = np.concatenate([p * wt, wt], -1).astype(np.float32)
+    valid = rng.uniform(size=(b, h, w)) < 0.8
+    sparse = valid[:, h // 2:h // 2 + 30, :40]
+    sparse &= rng.uniform(size=sparse.shape) < 0.004
+    point4[:, :25, -25:] = (0.5, 0.25, 2.0, 1.0)
+    valid[:, :25, -25:] = True
+    pdf = rng.uniform(-0.1, 1.0, (b, h, w)).astype(np.float32)
+    pdf[rng.uniform(size=(b, h, w)) < 0.05] = 0.0
+    pdf[:, :25, -25:] = 0.5
+    centers = np.zeros((b, c, 3), np.float32)
+    centers[:, :n_real] = rng.normal((0.0, 0.0, -1.0), 0.6, (b, n_real, 3))
+    if odd:
+        centers[:, n_real:] = rng.normal(0.0, 3.0, (b, c - n_real, 3))
+        if c > n_real:
+            centers[0, -1, 0] = np.nan
+        for wv in (0.0, 1e-25, -1e-30):
+            at = tuple(rng.integers(0, (b, h, w)))
+            point4[at][3] = wv
+        for v in (np.inf, -np.inf, np.nan):
+            for flag in (True, False):
+                at = tuple(rng.integers(0, (b, h, w)))
+                point4[at][rng.integers(0, 3)] = v
+                valid[at] = flag
+    cvalid = np.arange(c)[None].repeat(b, 0) < n_real
+    n_side = np.array([8, 1, 0, 3] * b, np.int32)[:b]
+    return [torch.from_numpy(a).to(dev) for a in (point4, valid, pdf, centers,
+                                                  cvalid, n_side)]
+
+
+_NORMALS_CASES = {
+    # koule's: B=4, 480x640, 16 centres of which 9 real, radius 10
+    "koule": dict(b=4, h=480, w=640, c=16, n_real=9),
+    # the tile axis's bands (rows of a batch, not contiguous), one shorter
+    # than the 21-row window; a width that is not a multiple of 32 or 128
+    "band30": dict(b=2, h=64, w=200, c=8, n_real=5, rows=(17, 47)),
+    "band8": dict(b=2, h=64, w=200, c=8, n_real=5, rows=(3, 11)),
+    "r0": dict(b=2, h=96, w=130, c=4, n_real=3, radius=0),
+    "r3": dict(b=3, h=96, w=130, c=4, n_real=4, radius=3),
+    # non-finite and zero-w points, junk in the padded centres, n_side as
+    # int64 and float32
+    "odd": dict(b=4, h=72, w=70, c=8, n_real=3, odd=True, side=torch.int64),
+    "odd_f32": dict(b=4, h=72, w=70, c=8, n_real=8, odd=True,
+                    side=torch.float32, radius=3),
+}
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("case", sorted(_NORMALS_CASES))
+def test_normals_kernels_match_the_eager_path(dev, case):
+    """NORMALS_COLS and NORMALS_FINISH against the eager normals on the
+    card (``normals_eager``), bit for bit (outputs compared as int32 bits):
+    every operation in the eager order, the window sums in its doubling
+    tree, the padded centres kept. Each estimation launches each kernel
+    once, counts ``normals_kernel`` once and dispatches no torch operator
+    that computes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from meshrecon_torch.depth import normals as nm
+    from meshrecon_torch.utils.profiling import StageTimer
+
+    spec = dict(_NORMALS_CASES[case])
+    radius = spec.pop("radius", 10)
+    rows = spec.pop("rows", None)
+    side = spec.pop("side", torch.int32)
+    args = _normals_batch(dev, seed=len(case), **spec)
+    args[5] = args[5].to(side)
+    if rows is not None:
+        for i in range(3):
+            args[i] = args[i][:, rows[0]:rows[1]]
+        assert not args[0].is_contiguous()
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(func.__name__)
+            return func(*args, **(kwargs or {}))
+
+    kernels = (nm.NORMALS_COLS, nm.NORMALS_FINISH)
+    before = [k.launches for k in kernels]
+    t = StageTimer()
+    with t.stage("normals"), Ops() as mode:
+        out = nm.estimate_normals_batched(*args, radius=radius)
+    assert [k.launches - n for k, n in zip(kernels, before)] == [1, 1]
+    assert t.counters["normals_kernel"] == 1
+    assert mode.names <= {"empty.memory_format", "select.int"}, mode.names
+    ref = nm.normals_eager(*args, radius=radius)
+    assert torch.equal(_bits(out), _bits(ref))
+    nz = (out != 0).any(-1)
+    assert nz.float().mean() > 0.3
+    if case == "koule":
+        # the single-frame form (the reconstruction's B=1 path)
+        one = nm.estimate_normals(*(a[1] for a in args[:5]), int(args[5][1]))
+        assert torch.equal(_bits(one), _bits(ref[1]))
+
+
+def test_normals_kernels_reach_every_branch(dev):
+    """The inputs of the cases above take NORMALS_FINISH's branches: the
+    fallback where a window holds fewer than 3 points, the isotropic +z
+    window, both orientations, and the finiteness guard on non-finite
+    points."""
+    from meshrecon_torch.depth import normals as nm
+
+    args = _normals_batch(dev, 4, 72, 70, 8, 3, seed=3)
+    out = nm.estimate_normals_batched(*args)
+    cnt = nm._window_sums_chw(args[1].float()[:, None], 10)[:, 0]
+    few = (cnt < 3) & args[1]
+    assert few.any() and (out[few] != 0).any()
+    corner = out[:, 12, -12]  # inside the patch of one repeated point
+    assert (corner[:, :2] == 0).all() and (corner[:, 2] != 0).all()
+    assert (out[..., 2] > 0).any() and (out[..., 2] < 0).any()
+    args = _normals_batch(dev, 4, 72, 70, 8, 3, seed=3, odd=True)
+    assert (~torch.isfinite(args[0]).all(-1) & args[1]).any()
+    assert torch.isfinite(nm.estimate_normals_batched(*args)).all()
+
+
+def test_normals_kernels_refuse_what_they_do_not_take(dev):
+    """The wrapper raises on shapes that disagree, a float valid mask,
+    float64 pdf, a negative radius and inputs on the CPU, launching
+    nothing."""
+    from meshrecon_torch.depth import normals as nm
+
+    args = _normals_batch(dev, 2, 16, 24, 4, 2, seed=1)
+    bad = [(0, args[0][..., :3]), (1, args[1].float()), (2, args[2].double()),
+           (3, args[3][:, :3]), (4, args[4][:1]), (5, args[5][:1]),
+           (3, args[3].cpu())]
+    before = nm.NORMALS_COLS.launches
+    for i, t in bad:
+        with pytest.raises(ValueError):
+            nm.estimate_normals_batched(*args[:i], t, *args[i + 1:])
+    with pytest.raises(ValueError):
+        nm.estimate_normals_batched(*args, radius=-1)
+    assert nm.NORMALS_COLS.launches == before
